@@ -5,20 +5,21 @@
 
 Builds the port's CUDA kernels from the checkout's sources, holds each
 kernel against its plain PyTorch version on the card at the shapes the main
-path gives it, drives the main path (dis_flow at 1024x436 on
-tests/goldens/fullres: operating point 2 grayscale, then op1 grayscale and
-op2 RGB) through the kernels with the launch counters reset just before each
-run and read just after, checks the outputs against the reference binaries'
-goldens, the port's CPU path and a second run, runs the CLI, and prints one
-JSON line per phase.  The line before the last lists every kernel with its
-times and bound; the last line is {"ok": true, "device": {...}}.  Any
-failure raises and the script exits non-zero without that line; so does a
-host without CUDA.
+paths give it, and drives seven paths at 1024x436 on tests/goldens/fullres
+through the entry points (dis_flow: operating point 2 gray, op1 gray, op2
+RGB, op3 gray, op4 gray; dis_stereo: op2 gray and RGB), each with the
+launch counters reset just before its run and read just after.  It checks
+the outputs against the reference binaries' goldens, the port's CPU path and
+a second run, times pairs, profiles the device, runs the CLI (flow and
+stereo), and prints one JSON line per phase.  The line before the last
+lists every kernel with its times and bound; the last line is
+{"ok": true, "device": {...}}.  Any failure raises and the script exits
+non-zero without that line; so does a host without CUDA.
 
 Times: CUDA events around one launch, queued behind a device-side sleep so
 the host's enqueue is not timed (median over repetitions).  Bounds: the
 larger of bytes over 3.35 TB/s and FP32 operations over 67 TFLOP/s (H100
-SXM data sheet), counted from this run's inputs.
+SXM data sheet), counted from this run's inputs and GN trips.
 """
 
 from __future__ import annotations
@@ -39,6 +40,32 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12      # H100 SXM FP32, outside the tensor cores
 EPE_GOLDEN = 0.08            # tests/test_golden_fullres.py:24
 EPE_CPU = 0.05               # tests/test_golden_fullres.py:87
+CPU_LIMIT_S = 60.0           # op4's card-vs-CPU check runs only if its CPU pair takes less
+KERNELS = ("level_search", "gn_search", "refine_inner", "sor_scalar", "sor_coupled")
+
+OF = ("of1.png", "of2.png")
+DE = ("de1.png", "de2.png")
+# Each path: input pair, channels, mode, operating point, full-res golden
+# (None: card against CPU only), and the launches one pair must make.
+PATHS = {
+    "op2 gray": (OF, 1, "flow", 2, "of_int_op2", dict(level_search=3, refine_inner=3)),
+    "op1 gray": (OF, 1, "flow", 1, "of_int_op1", dict(level_search=3)),
+    "op2 rgb": (OF, 3, "flow", 2, "of_rgb_op2", dict(level_search=2, gn_search=1,
+                                                    refine_inner=3)),
+    "op3 gray": (OF, 1, "flow", 3, "of_int_op3", dict(level_search=2, gn_search=3,
+                                                     refine_inner=5)),
+    "op4 gray": (OF, 1, "flow", 4, "of_int_op4", dict(level_search=2, gn_search=4,
+                                                     refine_inner=6)),
+    "stereo gray": (DE, 1, "stereo", 2, "de_int_op2", dict(level_search=3, sor_scalar=15)),
+    "stereo rgb": (DE, 3, "stereo", 2, None, dict(level_search=2, gn_search=1,
+                                                  sor_scalar=15)),
+}
+# Card-vs-CPU checks (op2 gray as before; op4 only within CPU_LIMIT_S) and
+# pairs timed per path.
+CPU_CHECKED = ("op2 gray", "op3 gray", "op4 gray", "stereo gray", "stereo rgb")
+PAIRS_TIMED = {"op2 gray": 10, "op3 gray": 10, "op4 gray": 5, "stereo gray": 10,
+               "stereo rgb": 10}
+PROFILED = {"op2 gray": 5, "op3 gray": 3, "op4 gray": 3, "stereo gray": 5}
 
 
 def emit(phase: str, **kw) -> None:
@@ -52,6 +79,38 @@ def epe(a: np.ndarray, b: np.ndarray) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def expected_launches(name: str) -> dict:
+    return {k: PATHS[name][5].get(k, 0) for k in KERNELS}
+
+
+def path_inputs(name: str):
+    """(img1, img2, cfg) of a path, from the full-res goldens' inputs."""
+    from of_dis_tpu_torch import io, operating_point
+
+    files, ch, mode, op, _, _ = PATHS[name]
+    imgs = [io.load_image(FULLRES / f, ch) for f in files]
+    return imgs[0], imgs[1], operating_point(op, imgs[0].shape[1], mode=mode, channels=ch)
+
+
+def run_path(name: str, img1, img2, cfg, device) -> np.ndarray:
+    """One pair through the path's entry point: (H, W, nop) on the host."""
+    from of_dis_tpu_torch import dis_flow, dis_stereo
+
+    if cfg.mode == "stereo":
+        return dis_stereo(img1, img2, cfg, device=device)[..., None].cpu().numpy()
+    return dis_flow(img1, img2, cfg, device=device).cpu().numpy()
+
+
+def cpu_run_to(name: str, out: str) -> None:
+    """Run a path on the CPU and save it (the op4 check runs this in a child
+    process, so that it can be stopped at CPU_LIMIT_S)."""
+    img1, img2, cfg = path_inputs(name)
+    t0 = time.perf_counter()
+    flow = run_path(name, img1, img2, cfg, "cpu")
+    np.save(out, flow)
+    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
 
 
 def gpu_ms(torch, fn, reps: int) -> float:
@@ -100,6 +159,20 @@ def level_search_work(args, cfg, iters) -> tuple:
     return nbytes, nops
 
 
+def gn_search_work(args, cfg, iters) -> tuple:
+    """Bytes (templates, gradients, Hessian, the target image, centres and
+    starts in; p, pt, pweight, flags out) and FP32 operations of one GN
+    search: ~20 per patch value and trip, as in level_search_work, over the
+    trips these inputs ran."""
+    imb, tmpl, pt_ref, p_init = args[:4]
+    n = pt_ref.shape[0]
+    npv = tmpl.tmp[0].numel()  # psz^2 * C
+    nbytes = 4 * (3 * tmpl.tmp.numel() + tmpl.hes.numel() + imb.numel() + pt_ref.numel()
+                  + p_init.numel() + n * (cfg.nop + 2 + npv + 2))
+    nops = 20.0 * npv * float((iters.double() + 1).sum())
+    return nbytes, nops
+
+
 def refine_inner_work(wx, derivs, n_inner, solver_it) -> tuple:
     """Bytes (wx, wy, mask, 8 derivatives in; uu, vv out) and FP32
     operations of one refine-inner launch: per pixel and inner iteration
@@ -112,6 +185,14 @@ def refine_inner_work(wx, derivs, n_inner, solver_it) -> tuple:
     return nbytes, nops
 
 
+def sor_work(nop: int, h: int, w: int, iterations: int) -> tuple:
+    """Bytes (5 fields in and 1 out for the scalar solver; 9 in and 2 out
+    for the coupled one) and FP32 operations per pixel and sweep: scalar
+    ~16 (diagonal 4, divide 1, neighbour sum 7, update 4), coupled ~31."""
+    fields = 6 if nop == 1 else 11
+    return 4.0 * fields * h * w, (16.0 if nop == 1 else 31.0) * h * w * iterations
+
+
 def main() -> int:
     import torch
 
@@ -119,12 +200,20 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU",
               file=sys.stderr)
         return 2
-    from of_dis_tpu_torch import io, operating_point
-    from of_dis_tpu_torch.models import dis as dis_mod
-    from of_dis_tpu_torch.models.inverse_search import level_search_reference
-    from of_dis_tpu_torch.models.refine import refine_inner_reference
+    from of_dis_tpu_torch import io
+    from of_dis_tpu_torch.models.densify import result_absw
+    from of_dis_tpu_torch.models.inverse_search import (
+        gn_search_reference,
+        level_search_reference,
+    )
+    from of_dis_tpu_torch.models.refine import (
+        refine_inner_reference,
+        sor_coupled_rb,
+        sor_scalar_rb,
+    )
     from of_dis_tpu_torch.ops import build, kernels
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -146,36 +235,25 @@ def main() -> int:
              for k, v in build.build_log.items()}
     emit("build", seconds=round(time.perf_counter() - t0, 3), libraries=sorted(libs), ptxas=ptxas)
 
-    # ---- inputs: the full-res pair, and each kernel call of the main path ----
-    gray = [io.load_image(FULLRES / f, 1) for f in ("of1.png", "of2.png")]
-    rgb = [io.load_image(FULLRES / f, 3) for f in ("of1.png", "of2.png")]
-    h0, w0 = gray[0].shape[:2]
-    cfg2 = operating_point(2, w0)
-    # Each path of the main path: its inputs, config, golden and the launches
-    # one pair must make (op1 runs no TV refinement).
-    paths = {
-        "op2 gray": (gray, cfg2, "of_int_op2", {"level_search": 3, "refine_inner": 3}),
-        "op1 gray": (gray, operating_point(1, w0), "of_int_op1",
-                     {"level_search": 3, "refine_inner": 0}),
-        "op2 rgb": (rgb, operating_point(2, w0, channels=3), "of_rgb_op2",
-                    {"level_search": 3, "refine_inner": 3}),
-    }
+    # ---- inputs: each path's pair, and every kernel call one pair makes ----
+    inputs = {name: path_inputs(name) for name in PATHS}
+    h0, w0 = inputs["op2 gray"][0].shape[:2]
 
-    def capture(imgs, cfg):
-        """Run dis_flow once on the card, recording every kernel call's arguments."""
-        calls = {"level_search": [], "refine_inner": []}
-        orig = {k: getattr(kernels, k) for k in calls}
+    def capture(name):
+        """Run a path once on the card, recording every kernel call's arguments."""
+        calls = {k: [] for k in KERNELS}
+        orig = {k: getattr(kernels, k) for k in KERNELS}
 
-        def recorder(name):
-            def rec(*a, **k):
-                calls[name].append((a, k))
-                return orig[name](*a, **k)
+        def recorder(k):
+            def rec(*a, **kw):
+                calls[k].append((a, kw))
+                return orig[k](*a, **kw)
             return rec
 
         try:
-            for k in calls:
+            for k in KERNELS:
                 setattr(kernels, k, recorder(k))
-            dis_mod.dis_flow(imgs[0], imgs[1], cfg, device=dev)
+            run_path(name, *inputs[name], dev)
         finally:
             for k, f in orig.items():
                 setattr(kernels, k, f)
@@ -183,20 +261,43 @@ def main() -> int:
         return calls
 
     calls = {}
-    for name, (imgs, cfg, _, expect) in paths.items():
-        calls[name] = capture(imgs, cfg)
+    for name in PATHS:
+        calls[name] = capture(name)
         made = {k: len(v) for k, v in calls[name].items()}
-        require(made == expect, f"{name} pair made kernel calls {made}, expected {expect}")
+        require(made == expected_launches(name),
+                f"{name} pair made kernel calls {made}, expected {expected_launches(name)}")
+
+    def level_of(name, i, kernel):
+        """Pyramid level of a path's i-th call of a search kernel."""
+        cfg = inputs[name][2]
+        lv = list(range(cfg.sc_f, cfg.sc_l - 1, -1))
+        n_level = PATHS[name][5].get("level_search", 0)
+        return lv[i] if kernel == "level_search" else lv[n_level + i]
+
+    def search_check(name, res, ref, cfg):
+        e_p = float((res.p - ref.p).abs().max())
+        e_pt = float((res.pt - ref.pt).abs().max())
+        absw_ok = bool(torch.allclose(result_absw(res, cfg), result_absw(ref, cfg),
+                                      rtol=1e-2, atol=1e-4))
+        conv_agree = float((res.converged == ref.converged).float().mean())
+        iters_agree = float((res.iters == ref.iters).float().mean())
+        ok = e_p <= 2e-3 and e_pt <= 2e-3 and absw_ok and conv_agree >= 0.99
+        return dict(case=name, n=int(res.p.shape[0]), max_iter=cfg.max_iter,
+                    max_abs_err_p=e_p, max_abs_err_pt=e_pt, absw_ok=absw_ok,
+                    converged_agree=conv_agree, iters_agree=iters_agree,
+                    mean_trips=float(res.iters.double().mean() + 1), ok=ok)
+
+    rows = {}  # kernel -> dict of the kernels line
 
     # ---- kernel level_search: kernel vs plain version on the card ----
     ls_err = 0.0
     ls_ms = ls_plain = ls_bound = 0.0
-    ls_bound_by = ri_bound_by = None  # of the finest level, the largest term of the sums
+    ls_bound_by = None  # of the finest level, the largest term of the sums
     # (case, args, kwargs): every call of every path, and the other costs at
     # op2 gray's finest level.  ms, plain_ms and bound_ms of the kernels line
     # sum op2 gray's three calls.
-    cases = [(f"{name} level {paths[name][1].sc_f - i}", a, k)
-             for name in paths for i, (a, k) in enumerate(calls[name]["level_search"])]
+    cases = [(f"{name} level {level_of(name, i, 'level_search')}", a, k)
+             for name in PATHS for i, (a, k) in enumerate(calls[name]["level_search"])]
     a3, k3 = calls["op2 gray"]["level_search"][2]
     for cost in (1, 2, 10):
         cfg_c = dataclasses.replace(a3[6], cost=cost)
@@ -205,16 +306,8 @@ def main() -> int:
         res = kernels.level_search(*a, **k)
         ref = level_search_reference(*a, **k)
         torch.cuda.synchronize()
-        e_p = float((res.p - ref.p).abs().max())
-        e_pt = float((res.pt - ref.pt).abs().max())
-        absw_ok = bool(torch.allclose(res.absw, ref.absw, rtol=1e-2, atol=1e-4))
-        conv_agree = float((res.converged == ref.converged).float().mean())
-        iters_agree = float((res.iters == ref.iters).float().mean())
-        ok = e_p <= 2e-3 and e_pt <= 2e-3 and absw_ok and conv_agree >= 0.99
-        line = dict(case=name, n=int(a[4].shape[0]), level_hw=list(a[0].shape[:2]),
-                    max_iter=a[6].max_iter, max_abs_err_p=e_p, max_abs_err_pt=e_pt,
-                    absw_ok=absw_ok, converged_agree=conv_agree, iters_agree=iters_agree,
-                    ok=ok)
+        line = search_check(name, res, ref, a[6])
+        line["level_hw"] = list(a[0].shape[:2])
         if "cost" not in name:
             ms = gpu_ms(torch, lambda: kernels.level_search(*a, **k), 50)
             pms = gpu_ms(torch, lambda: level_search_reference(*a, **k), 5)
@@ -224,15 +317,50 @@ def main() -> int:
                 ls_plain += pms
                 ls_bound += b
                 ls_bound_by = by
-            line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
-                        mean_trips=float(res.iters.double().mean() + 1))
+            line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
         emit("kernel level_search", **line)
-        require(ok, f"level_search disagrees with its plain version: {line}")
-        ls_err = max(ls_err, e_p, e_pt)
+        require(line["ok"], f"level_search disagrees with its plain version: {line}")
+        ls_err = max(ls_err, line["max_abs_err_p"], line["max_abs_err_pt"])
+    rows["level_search"] = dict(
+        source="level_search.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:1124",
+        per="op2 gray", max_abs_err=ls_err, ms=ls_ms, plain_ms=ls_plain, bound_ms=ls_bound,
+        bound_by=ls_bound_by)
+
+    # ---- kernel gn_search: every call of every path; times at op3 and op4 ----
+    gn_err = 0.0
+    gn_ms = gn_plain = gn_bound = 0.0
+    gn_bound_by = None
+    for name in PATHS:
+        for i, (a, k) in enumerate(calls[name]["gn_search"]):
+            case = f"{name} level {level_of(name, i, 'gn_search')}"
+            res = kernels.gn_search(*a, **k)
+            ref = gn_search_reference(*a, **k)
+            torch.cuda.synchronize()
+            line = search_check(case, res, ref, a[4])
+            line["level_hw"] = list(a[0].shape[:2])
+            if name in ("op3 gray", "op4 gray"):
+                ms = gpu_ms(torch, lambda: kernels.gn_search(*a, **k), 20)
+                pms = gpu_ms(torch, lambda: gn_search_reference(*a, **k), 3)
+                b, by = bound_ms(*gn_search_work(a, a[4], res.iters))
+                if name == "op4 gray":
+                    gn_ms += ms
+                    gn_plain += pms
+                    gn_bound += b
+                    gn_bound_by = by
+                line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
+            emit("kernel gn_search", **line)
+            require(line["ok"], f"gn_search disagrees with its plain version: {line}")
+            gn_err = max(gn_err, line["max_abs_err_p"], line["max_abs_err_pt"])
+    rows["gn_search"] = dict(
+        source="gn_search.cu",
+        replaces="of_dis_tpu/ops/pallas_kernels.py:538 and :560",
+        per="op4 gray", max_abs_err=gn_err, ms=gn_ms, plain_ms=gn_plain, bound_ms=gn_bound,
+        bound_by=gn_bound_by)
 
     # ---- kernel refine_inner: kernel vs plain version on the card ----
     ri_err = 0.0
     ri_ms = ri_plain = ri_bound = 0.0
+    ri_bound_by = None
     rng = np.random.RandomState(0)
     hb, wb = 448, 1024
     big = [torch.as_tensor(rng.randn(hb, wb).astype(np.float32) * s, device=dev) for s in (1.0, 1.0)]
@@ -243,8 +371,8 @@ def main() -> int:
     )
     a_big = tuple(big) + (big_derivs,) + calls["op2 gray"]["refine_inner"][2][0][4:]
     a_big = a_big[:4] + (1,) + a_big[5:]  # n_inner of op4's finest level (level 0)
-    rcases = [(f"{name} level {paths[name][1].sc_f - i}", a)
-              for name in paths for i, (a, _) in enumerate(calls[name]["refine_inner"])]
+    rcases = [(f"{name} level {inputs[name][2].sc_f - i}", a)
+              for name in PATHS for i, (a, _) in enumerate(calls[name]["refine_inner"])]
     rcases.append(("random 448x1024", a_big))
     for name, a in rcases:
         uu, vv = kernels.refine_inner(*a)
@@ -266,45 +394,151 @@ def main() -> int:
         emit("kernel refine_inner", **line)
         require(ok, f"refine_inner disagrees with its plain version: {line}")
         ri_err = max(ri_err, err)
+    rows["refine_inner"] = dict(
+        source="refine_inner.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:144",
+        per="op2 gray", max_abs_err=ri_err, ms=ri_ms, plain_ms=ri_plain, bound_ms=ri_bound,
+        bound_by=ri_bound_by)
+
+    # ---- kernels sor_scalar and sor_coupled: kernel vs plain version ----
+    def sor_system(h, w, seed):
+        r = np.random.RandomState(seed)
+
+        def f(scale, off=0.0):
+            return torch.as_tensor((r.randn(h, w) * scale + off).astype(np.float32), device=dev)
+
+        wh, wv = f(0.5, 1.0).abs(), f(0.5, 1.0).abs()
+        wh[:, -1] = 0.0
+        wv[-1, :] = 0.0
+        return (f(0.3), f(0.3), f(0.5, 2.0).abs(), f(0.2), f(0.5, 2.0).abs(), f(1.0), f(1.0),
+                wh, wv)
+
+    def sor_case(kernel, case, a, timed):
+        ker = getattr(kernels, kernel)
+        plain = sor_scalar_rb if kernel == "sor_scalar" else sor_coupled_rb
+        out, ref = ker(*a), plain(*a)
+        out = out if isinstance(out, tuple) else (out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        ok = all(bool(torch.allclose(o, r, rtol=1e-5, atol=1e-5)) for o, r in zip(out, ref))
+        h, w = a[0].shape
+        line = dict(case=case, hw=[h, w], iterations=int(a[-2]), max_abs_err=err, ok=ok)
+        if timed:
+            ms = gpu_ms(torch, lambda: ker(*a), 50)
+            pms = gpu_ms(torch, lambda: plain(*a), 5)
+            b, by = bound_ms(*sor_work(len(out), h, w, int(a[-2])))
+            line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
+        emit(f"kernel {kernel}", **line)
+        require(ok, f"{kernel} disagrees with its plain version: {line}")
+        return line
+
+    # sor_scalar: every call of both stereo paths (15 per pair: levels 5, 4, 3
+    # with n_inner 6, 5, 4); the stereo gray calls and 448x1024 are timed.
+    ss = dict(source="sor_rb.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:1350",
+              per="stereo gray", max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+              bound_by=None)
+    for name in ("stereo gray", "stereo rgb"):
+        cfg = inputs[name][2]
+        levels = [sl for sl in range(cfg.sc_f, cfg.sc_l - 1, -1)
+                  for _ in range(cfg.tv_innerit * (sl + 1))]
+        for sl, (a, _) in zip(levels, calls[name]["sor_scalar"]):
+            line = sor_case("sor_scalar", f"{name} level {sl}", a, name == "stereo gray")
+            ss["max_abs_err"] = max(ss["max_abs_err"], line["max_abs_err"])
+            if name == "stereo gray":
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    ss[key] += line[key]
+                ss["bound_by"] = line["bound_by"]
+    s = sor_system(448, 1024, 1)
+    a_ss = (s[0], s[2], s[5], s[7], s[8], 3, 1.6)
+    line = sor_case("sor_scalar", "random 448x1024", a_ss, True)
+    ss["max_abs_err"] = max(ss["max_abs_err"], line["max_abs_err"])
+    rows["sor_scalar"] = ss
+
+    # sor_coupled: on no path (flow levels run it inside refine_inner); at
+    # op2's level shapes and 448x1024 on seeded fields.
+    sc = dict(source="sor_rb.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:58",
+              per=None, max_abs_err=0.0,
+              ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None)
+    for h, w in ((14, 32), (28, 64), (56, 128), (448, 1024)):
+        line = sor_case("sor_coupled", f"random {h}x{w}", sor_system(h, w, h + w) + (3, 1.6),
+                        True)
+        sc["max_abs_err"] = max(sc["max_abs_err"], line["max_abs_err"])
+        if h < 448:
+            for key in ("ms", "plain_ms", "bound_ms"):
+                sc[key] += line[key]
+            sc["bound_by"] = line["bound_by"]
+    rows["sor_coupled"] = sc
 
     # ---- main path: each path through the kernels, counted ----
     def golden(case):
         return np.load(FULLRES / f"{case}.npz")["ref"].astype(np.float32)
 
+    def cpu_flow(name):
+        """The path on the CPU, and its seconds; op4 in a child process that
+        is stopped at CPU_LIMIT_S (then None)."""
+        if name != "op4 gray":
+            t0 = time.perf_counter()
+            flow = run_path(name, *inputs[name], "cpu")
+            return flow, time.perf_counter() - t0
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        out = OUT_DIR / "op4_cpu.npy"
+        code = f"import chip_smoke; chip_smoke.cpu_run_to({name!r}, {str(out)!r})"
+        try:
+            proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                                  text=True, timeout=CPU_LIMIT_S + 30)
+        except subprocess.TimeoutExpired:
+            return None, f">= {CPU_LIMIT_S + 30} (stopped)"
+        require(proc.returncode == 0, f"op4 CPU run failed: {proc.stderr[-2000:]}")
+        secs = json.loads(proc.stdout.strip().splitlines()[-1])["seconds"]
+        return (np.load(out) if secs < CPU_LIMIT_S else None), secs
+
     flows = {}
     counts = {}
-    for name, (imgs, cfg, case, expect) in paths.items():
+    latency = {}
+    for name in PATHS:
+        img1, img2, cfg = inputs[name]
         kernels.reset_launches()
-        flow = dis_mod.dis_flow(imgs[0], imgs[1], cfg, device=dev)
+        flow = run_path(name, img1, img2, cfg, dev)
         torch.cuda.synchronize()
         counts[name] = dict(kernels.launches)
-        require(counts[name] == expect,
-                f"{name} pair launched {counts[name]}, expected {expect}")
-        flows[name] = flow = flow.cpu().numpy()
-        again = dis_mod.dis_flow(imgs[0], imgs[1], cfg, device=dev).cpu().numpy()
+        require(counts[name] == expected_launches(name),
+                f"{name} pair launched {counts[name]}, expected {expected_launches(name)}")
+        flows[name] = flow
+        again = run_path(name, img1, img2, cfg, dev)
         line = dict(config=f"{name} {w0}x{h0}", launches=counts[name],
-                    epe_vs_golden=epe(flow, golden(case)),
-                    finite_and_shaped=bool(np.isfinite(flow).all() and flow.shape == (h0, w0, 2)),
+                    finite_and_shaped=bool(np.isfinite(flow).all()
+                                           and flow.shape == (h0, w0, cfg.nop)),
                     bit_identical=bool(np.array_equal(flow, again)))
-        if name == "op2 gray":
-            flow_cpu = dis_mod.dis_flow(imgs[0], imgs[1], cfg, device="cpu").numpy()
-            line["epe_card_vs_cpu"] = epe(flow, flow_cpu)
+        case = PATHS[name][4]
+        if case is not None:
+            line["epe_vs_golden"] = epe(flow, golden(case))
+        if name in CPU_CHECKED:
+            flow_cpu, secs = cpu_flow(name)
+            line["cpu_seconds"] = secs
+            if flow_cpu is not None:
+                line["epe_card_vs_cpu"] = epe(flow, flow_cpu)
+            else:
+                line["epe_card_vs_cpu"] = f"not compared: the CPU pair takes >= {CPU_LIMIT_S} s"
+        if name in PAIRS_TIMED:
             for _ in range(3):
-                dis_mod.dis_flow(imgs[0], imgs[1], cfg, device=dev)
+                run_path(name, img1, img2, cfg, dev)
             torch.cuda.synchronize()
             pair_ms = []
-            for _ in range(30):
+            for _ in range(PAIRS_TIMED[name]):
                 t0 = time.perf_counter()
-                dis_mod.dis_flow(imgs[0], imgs[1], cfg, device=dev)
+                run_path(name, img1, img2, cfg, dev)
                 torch.cuda.synchronize()
                 pair_ms.append((time.perf_counter() - t0) * 1e3)
-            line.update(pair_ms_median=float(np.median(pair_ms)),
-                        pair_ms_min=float(np.min(pair_ms)), pairs_timed=len(pair_ms))
+            latency[name] = float(np.median(pair_ms))
+            line.update(pair_ms_median=latency[name], pair_ms_min=float(np.min(pair_ms)),
+                        pairs_timed=len(pair_ms))
         emit("main path", **line)
-        require(line["finite_and_shaped"], f"{name}: non-finite or misshapen flow")
+        require(line["finite_and_shaped"], f"{name}: non-finite or misshapen output")
         require(line["bit_identical"], f"{name}: two runs differ")
-        require(line["epe_vs_golden"] < EPE_GOLDEN, f"{name}: mean EPE {line['epe_vs_golden']}")
-        if "epe_card_vs_cpu" in line:
+        if "epe_vs_golden" in line:
+            require(line["epe_vs_golden"] < EPE_GOLDEN,
+                    f"{name}: mean EPE {line['epe_vs_golden']}")
+        if isinstance(line.get("epe_card_vs_cpu"), float):
             require(line["epe_card_vs_cpu"] < EPE_CPU,
                     f"{name}: card vs CPU mean EPE {line['epe_card_vs_cpu']}")
 
@@ -314,61 +548,67 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n_prof = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            dis_mod.dis_flow(gray[0], gray[1], cfg2, device=dev)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / n_prof
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
-    for e in dev_events:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-    busy_ms = sum(t for t, _ in by_name.values()) / n_prof
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    emit("profile", config="op2 gray", pairs=n_prof, traced_wall_ms_per_pair=traced_ms,
-         device_ops_per_pair=len(dev_events) / n_prof if dev_events else "not measured",
-         device_busy_ms_per_pair=busy_ms if dev_events else "not measured",
-         device_idle_share_traced=(1.0 - busy_ms / traced_ms) if dev_events
-         else "not measured",
-         top=[dict(name=k[:80], ms_per_pair=t / n_prof, per_pair=c / n_prof)
-              for k, (t, c) in top])
+    for name, n_prof in PROFILED.items():
+        img1, img2, cfg = inputs[name]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_prof):
+                run_path(name, img1, img2, cfg, dev)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name = {}
+        for e in dev_events:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+        busy_ms = sum(t for t, _ in by_name.values()) / n_prof
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        emit("profile", config=name, pairs=n_prof, traced_wall_ms_per_pair=traced_ms,
+             device_ops_per_pair=len(dev_events) / n_prof if dev_events else "not measured",
+             device_busy_ms_per_pair=busy_ms if dev_events else "not measured",
+             device_idle_share_traced=(1.0 - busy_ms / traced_ms) if dev_events
+             else "not measured",
+             top=[dict(name=k[:80], ms_per_pair=t / n_prof, per_pair=c / n_prof)
+                  for k, (t, c) in top])
 
-    # ---- cli ----
+    # ---- cli: flow .flo and stereo .pfm equal the library's output ----
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    out = OUT_DIR / "of_int_op2.flo"
-    proc = subprocess.run(
-        [sys.executable, "-m", "of_dis_tpu_torch.cli", str(FULLRES / "of1.png"),
-         str(FULLRES / "of2.png"), str(out), "--op", "2", "-v", "1"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
-    )
-    require(proc.returncode == 0, f"cli failed: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-    cli_equal = bool(np.array_equal(io.read_flo(out), flows["op2 gray"]))
-    emit("cli", returncode=proc.returncode, stdout=proc.stdout.strip().splitlines()[-1:],
-         equal_to_library=cli_equal)
-    require(cli_equal, "cli .flo differs from the library's output")
+    for name, files, out_name in (("op2 gray", OF, "of_int_op2.flo"),
+                                  ("stereo gray", DE, "de_int_op2.pfm")):
+        out = OUT_DIR / out_name
+        proc = subprocess.run(
+            [sys.executable, "-m", "of_dis_tpu_torch.cli", str(FULLRES / files[0]),
+             str(FULLRES / files[1]), str(out), "--op", "2", "-v", "1"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+        require(proc.returncode == 0, f"cli failed: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        if out_name.endswith(".flo"):
+            cli_equal = bool(np.array_equal(io.read_flo(out), flows[name]))
+        else:
+            lib = OUT_DIR / "library.pfm"
+            io.write_pfm(lib, flows[name][..., 0])
+            cli_equal = out.read_bytes() == lib.read_bytes()
+        emit("cli", output=out_name, returncode=proc.returncode,
+             stdout=proc.stdout.strip().splitlines()[-1:], equal_to_library=cli_equal)
+        require(cli_equal, f"cli {out_name} differs from the library's output")
 
     # ---- kernels ----
     kernel_rows = [
-        dict(name="level_search", route="cuda", source="of_dis_tpu_torch/csrc/level_search.cu",
-             replaces="of_dis_tpu/ops/pallas_kernels.py:1124",
-             launches=counts["op2 gray"]["level_search"], max_abs_err=ls_err, ms=ls_ms,
-             plain_ms=ls_plain, bound_ms=ls_bound,
-             bound_by=ls_bound_by,
-             library_ms=None),
-        dict(name="refine_inner", route="cuda", source="of_dis_tpu_torch/csrc/refine_inner.cu",
-             replaces="of_dis_tpu/ops/pallas_kernels.py:144",
-             launches=counts["op2 gray"]["refine_inner"], max_abs_err=ri_err, ms=ri_ms,
-             plain_ms=ri_plain, bound_ms=ri_bound,
-             bound_by=ri_bound_by,
-             library_ms=None),
+        dict(name=k, route="cuda", source=f"of_dis_tpu_torch/csrc/{rows[k]['source']}",
+             replaces=rows[k]["replaces"],
+             launches=counts[rows[k]["per"]][k] if rows[k]["per"] else 0,
+             max_abs_err=rows[k]["max_abs_err"], ms=rows[k]["ms"],
+             plain_ms=rows[k]["plain_ms"], bound_ms=rows[k]["bound_ms"],
+             bound_by=rows[k]["bound_by"], library_ms=None)
+        for k in KERNELS
     ]
-    emit("kernels", note="launches, ms, plain_ms and bound_ms are per op2 gray pair: "
-         "the sum over its three launches (levels 5, 4, 3)",
-         launches_per_path=counts, checks={r["name"]: "ok" for r in kernel_rows})
+    emit("kernels", note="launches, ms, plain_ms and bound_ms are per pair of the path "
+         "named in `per` (the sum over its launches); sor_coupled is on no path and its "
+         "times sum one launch at each op2 level shape",
+         per={k: rows[k]["per"] for k in KERNELS}, launches_per_path=counts,
+         pair_ms_median=latency, checks={k: "ok" for k in KERNELS},
+         total_seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,23 @@
 """of_dis_tpu_torch — the PyTorch / CUDA port of of_dis_tpu (Dense Inverse
 Search optical flow, Kroeger et al., ECCV 2016) for NVIDIA Hopper.
 
-Plain tensor code is PyTorch; the two TPU kernels of the optical-flow main
-path are hand-written CUDA kernels (csrc/level_search.cu,
-csrc/refine_inner.cu) built with nvcc at first use (ops/build.py).  Entry
-points run on CUDA unless given device="cpu", where the kernels' plain
-PyTorch versions run instead.  Imports neither JAX nor of_dis_tpu.
+Plain tensor code is PyTorch; every TPU kernel of the JAX package is a
+hand-written CUDA kernel (csrc/level_search.cu, csrc/gn_search.cu,
+csrc/refine_inner.cu, csrc/sor_rb.cu) built with nvcc at first use
+(ops/build.py).  Entry points run on CUDA unless given device="cpu", where
+the kernels' plain PyTorch versions run instead.  Imports neither JAX nor
+of_dis_tpu.
 
 Public API:
-    dis_flow(img1, img2, cfg, device=None) -> (H, W, 2) optical flow tensor
-    dis_raw(img1, img2, cfg, ...)          -> (H, W, nop) tensor
+    dis_flow(img1, img2, cfg, device=None)   -> (H, W, 2) optical flow tensor
+    dis_stereo(img1, img2, cfg, device=None) -> (H, W) disparity tensor (left camera <= 0)
+    dis_raw(img1, img2, cfg, ...)            -> (H, W, nop) tensor
     DISConfig, operating_point, auto_first_scale
     io.read_flo / write_flo / read_pfm / write_pfm / load_image
 """
 
 from .config import DISConfig, auto_first_scale, operating_point
-from .models.dis import dis_flow, dis_raw
+from .models.dis import dis_flow, dis_raw, dis_stereo
 from . import io
 
 __version__ = "0.1.0"
@@ -26,5 +28,6 @@ __all__ = [
     "operating_point",
     "dis_flow",
     "dis_raw",
+    "dis_stereo",
     "io",
 ]

@@ -1,16 +1,19 @@
-"""Command-line driver of the PyTorch / CUDA port (optical flow), mirroring
-of_dis_tpu/cli.py and the reference's run_OF_* binaries (run_dense.cpp:225-294,
-README.md:51-88):
+"""Command-line driver of the PyTorch / CUDA port (optical flow and stereo),
+mirroring of_dis_tpu/cli.py and the reference's run_OF_* / run_DE_* binaries
+(run_dense.cpp:225-294, README.md:51-88):
 
   python -m of_dis_tpu_torch.cli img1 img2 out.flo                # operating point 2
-  python -m of_dis_tpu_torch.cli img1 img2 out.flo --op 1
+  python -m of_dis_tpu_torch.cli img1 img2 out.flo --op 4
   python -m of_dis_tpu_torch.cli img1 img2 out.flo --params 5 3 12 12 0.05 0.95 0 8 0.4 0 1 0 1 10 10 5 1 3 1.6 2
+  python -m of_dis_tpu_torch.cli left right out.pfm [--camlr 1]   # stereo
   python -m of_dis_tpu_torch.cli img1 img2 out.flo --device cpu   # plain PyTorch path
 
---rgb selects 3-channel input; --gradmag uses the gradient-magnitude input
-image (reference SELECTCHANNEL==2).  Runs on CUDA unless --device says
-otherwise.  -v 1 and -v 2 print the stage timer (the per-scale -v 2 table
-is not ported yet).  Stereo (.pfm output) is not ported yet.
+The mode follows the output's extension (.flo flow, .pfm stereo) unless
+--mode names it; a .pfm holds the disparity negated, as the reference
+writes it.  --rgb selects 3-channel input; --gradmag uses the
+gradient-magnitude input image (reference SELECTCHANNEL==2).  Runs on CUDA
+unless --device says otherwise.  -v 1 and -v 2 print the stage timer (the
+per-scale -v 2 table is not ported yet).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from .models.dis import dis_raw, resolve_device
 from .utils.timing import StageTimer
 
 
-def _cfg_from_params(params, mode: str, channels: int) -> DISConfig:
+def _cfg_from_params(params, mode: str, channels: int, camlr: int = 0) -> DISConfig:
     """The 20 explicit positional parameters (run_dense.cpp:269-294)."""
     if len(params) != 20:
         raise SystemExit(f"--params needs exactly 20 values, got {len(params)}")
@@ -32,6 +35,7 @@ def _cfg_from_params(params, mode: str, channels: int) -> DISConfig:
     return DISConfig(
         mode=mode,
         channels=channels,
+        camlr=camlr,
         sc_f=int(p[0]),
         sc_l=int(p[1]),
         max_iter=int(p[2]),
@@ -64,9 +68,13 @@ def main(argv=None) -> int:
     ap.add_argument("--op", type=int, default=2, choices=[1, 2, 3, 4])
     ap.add_argument("--params", type=float, nargs="*", default=None,
                     help="20 explicit parameters (reference variant 3)")
+    ap.add_argument("--mode", choices=["flow", "stereo"], default=None,
+                    help="default: stereo for a .pfm output, else flow")
     ap.add_argument("--rgb", action="store_true")
     ap.add_argument("--gradmag", action="store_true",
                     help="gradient-magnitude input image (SELECTCHANNEL==2)")
+    ap.add_argument("--camlr", type=int, default=0, choices=[0, 1],
+                    help="stereo camera: 0 left (disparity <= 0), 1 right")
     ap.add_argument("--init-flow", default=None,
                     help=".flo warm start at the coarsest scale (oflow.cpp:217-220)")
     ap.add_argument("--device", default=None,
@@ -74,7 +82,7 @@ def main(argv=None) -> int:
     ap.add_argument("-v", "--verbosity", type=int, default=2)
     args = ap.parse_args(argv)
 
-    mode = "stereo" if args.out.endswith(".pfm") else "flow"
+    mode = args.mode or ("stereo" if args.out.endswith(".pfm") else "flow")
     channels = 3 if args.rgb else 1
     device = resolve_device(args.device)
 
@@ -91,10 +99,10 @@ def main(argv=None) -> int:
         )
 
     if args.params is not None:
-        cfg = _cfg_from_params(args.params, mode, channels)
+        cfg = _cfg_from_params(args.params, mode, channels, args.camlr)
     else:
         cfg = operating_point(args.op, img1.shape[1], mode=mode, channels=channels,
-                              verbosity=args.verbosity)
+                              verbosity=args.verbosity, camlr=args.camlr)
 
     init_flow = None
     if args.init_flow:
@@ -116,7 +124,10 @@ def main(argv=None) -> int:
                       device=device).cpu().numpy()
 
     with timer.stage("Saving flow file"):
-        io.write_flo(args.out, out)
+        if mode == "flow":
+            io.write_flo(args.out, out)
+        else:
+            io.write_pfm(args.out, out[..., 0])
     timer.report()
     return 0
 

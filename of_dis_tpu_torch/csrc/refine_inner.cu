@@ -10,9 +10,10 @@
 //               x3 single-channel factors               (opticalflow_aux.c:306-438)
 //   RHS         b -= div(w grad(wx|wy)), zero-fill shifts (:171-199)
 //   SOR         solver_it red-black sweeps; red is (x + y) % 2 == 0; in each
-//               colour du is updated first and dv uses the new du (solver.c:19-72)
+//               colour du is updated first and dv uses the new du (solver.c:19-72;
+//               the pixel update is sor_rb.cuh's, shared with sor_rb.cu)
 //   update      uu = wx + du, vv = wy + dv
-// The plain version is of_dis_tpu_torch/ops/kernels.py::refine_inner_reference.
+// The plain version is of_dis_tpu_torch/models/refine.py::refine_inner_reference.
 //
 // What bounds it on an H100: latency.  At op2's finest level (56x128) a
 // launch moves ~0.4 MB and does ~1e7 FP32 operations — well under a
@@ -30,6 +31,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "sor_rb.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -181,16 +184,6 @@ __device__ __forceinline__ void coefficients(const RefineParams& P, int y, int x
   }
 }
 
-// Neighbour sum up(wv*x) + left(wh*x) + wv*down(x) + wh*right(x), zero-fill.
-__device__ __forceinline__ float nb(const RefineParams& P, const float* f, int y, int x, int k) {
-  const int w = P.w;
-  const float up = y > 0 ? P.wv[k - w] * f[k - w] : 0.f;
-  const float left = x > 0 ? P.wh[k - 1] * f[k - 1] : 0.f;
-  const float down = y < P.h - 1 ? f[k + w] : 0.f;
-  const float right = x < w - 1 ? f[k + 1] : 0.f;
-  return up + left + P.wv[k] * down + P.wh[k] * right;
-}
-
 template <int C>
 __global__ void __launch_bounds__(THREADS) refine_inner_kernel(const RefineParams P) {
   cg::grid_group grid = cg::this_grid();
@@ -215,13 +208,9 @@ __global__ void __launch_bounds__(THREADS) refine_inner_kernel(const RefineParam
         for (int k = first; k < npx; k += stride) {
           const int y = k / P.w, x = k % P.w;
           if (((x + y) & 1) == color) {
-            const float a12 = P.a12[k];
-            const float du = P.du[k];
-            const float dv = P.dv[k];
-            const float B1 = P.b1[k] + nb(P, P.du, y, x, k);
-            const float du_n = (1.f - omega) * du + P.inv11[k] * (B1 - a12 * dv);
-            const float B2 = P.b2[k] + nb(P, P.dv, y, x, k);
-            const float dv_n = (1.f - omega) * dv + P.inv22[k] * (B2 - a12 * du_n);
+            float du_n, dv_n;
+            sor::coupled_update(P.wh, P.wv, P.du, P.dv, P.b1[k], P.b2[k], P.a12[k], P.inv11[k],
+                                P.inv22[k], omega, y, x, k, P.h, P.w, du_n, dv_n);
             P.du[k] = du_n;
             P.dv[k] = dv_n;
             if (last) {

@@ -1,20 +1,24 @@
-"""Coarse-to-fine DIS driver (dense inverse search optical flow), PyTorch
-port of of_dis_tpu/models/dis.py (OFC::OFClass, oflow.cpp:32-363, and the
-driver glue of run_dense.cpp:296-414):
+"""Coarse-to-fine DIS driver (dense inverse search optical flow and
+stereo), PyTorch port of of_dis_tpu/models/dis.py (OFC::OFClass,
+oflow.cpp:32-363, and the driver glue of run_dense.cpp:296-414):
 
     flow = dis_flow(img1, img2, cfg)          # (H, W, 2), on the card
+    disp = dis_stereo(img1, img2, cfg)        # (H, W), left camera <= 0
     flow = dis_flow(img1, img2, cfg, device="cpu")
 
 Eager: the scale loop is a Python loop.  Per scale sl = sc_f .. sc_l
 (oflow.cpp:184-337): templates -> init from coarser flow (2x NN lookup) ->
-level search (CUDA kernel csrc/level_search.cu) -> deterministic
-densification -> variational refinement (CUDA kernel csrc/refine_inner.cu).
+level search -> deterministic densification -> variational refinement.
+The search runs in one of two CUDA kernels, as ops/kernels.py::search_route
+decides for the level's shape: csrc/level_search.cu extracts the templates
+itself, csrc/gn_search.cu takes them from `build_templates`.  Refinement
+runs csrc/refine_inner.cu (flow) or csrc/sor_rb.cu's scalar SOR (stereo).
 Final: upscale by 2^sc_l (INTER_LINEAR, flow values scaled) and crop the
 divisibility padding (run_dense.cpp:406-414).
 
 Entry points run on CUDA unless the caller passes device="cpu"; without a
-GPU they raise.  Stereo and the forward-backward merge are not ported yet
-and raise NotImplementedError.
+GPU they raise.  The forward-backward merge is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from ..ops import kernels
 from ..ops import pyramid as pyr
 from .densify import aggregate_flow_dense
 from .grid import level_geometry
-from .inverse_search import PatchTemplates
+from .inverse_search import PatchTemplates, build_templates
 from .refine import refine_level
 
 
@@ -55,10 +59,18 @@ def _grid_tensors(w: int, h: int, cfg: DISConfig, device: torch.device):
     return geo, pt_ref, coarse_idx
 
 
-def _stage_templates(im_a, dx_a, dy_a) -> PatchTemplates:
-    """Stage 'pconst': template extraction + Hessians (patchgrid.cpp:109-114)
-    happen inside the level search; this stage forwards the level images."""
-    return PatchTemplates(tmp=im_a, dx=dx_a, dy=dy_a, hes=None)
+def _stage_templates(im_a, dx_a, dy_a, pt_ref, cfg: DISConfig, pad: int) -> PatchTemplates:
+    """Stage 'pconst': template extraction + Hessians (patchgrid.cpp:109-114).
+    On levels that kernels.search_route sends to the whole-level search they
+    happen inside that kernel, and this stage forwards the level images
+    (hes None); elsewhere they are built here for gn_search."""
+    hp, wp, c = im_a.shape
+    psz = cfg.patch_size
+    route = kernels.search_route(hp, wp, c, pt_ref.shape[0], psz,
+                                 min(2 * psz + 2, hp), min(2 * psz + 2, wp))
+    if route == "level":
+        return PatchTemplates(tmp=im_a, dx=dx_a, dy=dy_a, hes=None)
+    return build_templates(im_a, dx_a, dy_a, pt_ref, cfg, pad)
 
 
 def _stage_init(flow_prev: Optional[torch.Tensor], coarse_idx, n: int,
@@ -72,9 +84,11 @@ def _stage_init(flow_prev: Optional[torch.Tensor], coarse_idx, n: int,
 
 def _stage_optimize(tmpl: PatchTemplates, im_b, pt_ref, p_init, cfg: DISConfig,
                     w: int, h: int, pad: int):
-    """Stage 'poptim': the level search (kernel A on the card)."""
-    return kernels.level_search(tmpl.tmp, tmpl.dx, tmpl.dy, im_b, pt_ref, p_init,
-                                cfg, w, h, pad)
+    """Stage 'poptim': the level search, in the kernel the templates stage chose."""
+    if tmpl.hes is None:
+        return kernels.level_search(tmpl.tmp, tmpl.dx, tmpl.dy, im_b, pt_ref, p_init,
+                                    cfg, w, h, pad)
+    return kernels.gn_search(im_b, tmpl, pt_ref, p_init, cfg, w, h, pad)
 
 
 def _stage_densify(res, geo, cfg: DISConfig):
@@ -82,11 +96,11 @@ def _stage_densify(res, geo, cfg: DISConfig):
     return aggregate_flow_dense(res, geo, cfg)
 
 
-def _stage_refine(flow, im_a_raw, im_b_raw, sl: int, cfg: DISConfig):
-    """Stage 'tvopt': variational refinement (kernel B on the card)."""
+def _stage_refine(flow, im_a_raw, im_b_raw, sl: int, cfg: DISConfig, camlr: int):
+    """Stage 'tvopt': variational refinement."""
     if not cfg.use_tv_refine:
         return flow
-    return refine_level(flow, im_a_raw, im_b_raw, sl, cfg)
+    return refine_level(flow, im_a_raw, im_b_raw, sl, cfg, camlr=camlr)
 
 
 def _level_flow(im_a, dx_a, dy_a, im_b, flow_prev, sl: int, w: int, h: int,
@@ -94,11 +108,11 @@ def _level_flow(im_a, dx_a, dy_a, im_b, flow_prev, sl: int, w: int, h: int,
     """One pyramid level: the flow at this scale, (h, w, nop)."""
     pad = cfg.patch_size
     geo, pt_ref, coarse_idx = _grid_tensors(w, h, cfg, im_a.device)
-    tmpl = _stage_templates(im_a, dx_a, dy_a)
+    tmpl = _stage_templates(im_a, dx_a, dy_a, pt_ref, cfg, pad)
     p_init = _stage_init(flow_prev, coarse_idx, geo.n_patches, cfg, im_a.device)
     res = _stage_optimize(tmpl, im_b, pt_ref, p_init, cfg, w, h, pad)
     flow = _stage_densify(res, geo, cfg)
-    return _stage_refine(flow, im_a_raw, im_b_raw, sl, cfg)
+    return _stage_refine(flow, im_a_raw, im_b_raw, sl, cfg, cfg.camlr)
 
 
 def _dis_padded(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False):
@@ -136,8 +150,6 @@ def dis_raw(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = Fa
     crop (run_dense.cpp:296-414).  Returns an (H, W, nop) float32 tensor on
     `device` (CUDA unless given)."""
     cfg.validate()
-    if cfg.mode != "flow":
-        raise NotImplementedError("stereo is not ported yet")
     if cfg.use_fb_merge:
         raise NotImplementedError("the forward-backward merge is not ported yet")
     dev = resolve_device(device)
@@ -177,3 +189,17 @@ def dis_flow(img1, img2, cfg: Optional[DISConfig] = None, **kw) -> torch.Tensor:
     if cfg.mode != "flow":
         raise ValueError("cfg.mode must be 'flow'")
     return dis_raw(img1, img2, cfg, **kw)
+
+
+def dis_stereo(img1, img2, cfg: Optional[DISConfig] = None, **kw) -> torch.Tensor:
+    """Stereo disparity: (H, W) float32 tensor in the internal sign
+    convention (left camera <= 0); io.write_pfm negates on write like the
+    reference.  Keyword arguments go to dis_raw."""
+    if cfg is None:
+        from ..config import operating_point
+
+        cfg = operating_point(2, img1.shape[1], mode="stereo",
+                              channels=1 if img1.ndim == 2 else img1.shape[2])
+    if cfg.mode != "stereo":
+        raise ValueError("cfg.mode must be 'stereo'")
+    return dis_raw(img1, img2, cfg, **kw)[..., 0]

@@ -11,8 +11,15 @@ gathered from the level image by indexing, with the window's bounds as the
 mask, exactly as the JAX package's windowed extraction reads them.
 
 `level_search_reference` (templates + `optimize_level` + densification
-weights) is the plain version of the search, the spec that the CUDA kernel
-(csrc/level_search.cu, wrapper ops/kernels.py::level_search) is held against.
+weights) is the plain version of the whole-level search, the spec that the
+CUDA kernel csrc/level_search.cu (wrapper ops/kernels.py::level_search) is
+held against; `gn_search_reference` (`optimize_level` over templates from
+`build_templates`) is that of csrc/gn_search.cu (ops/kernels.py::gn_search).
+Every sum over a patch (`_patch_sum`) is taken in the kernels' order, and
+every division by a constant is a true division (`_div`), so a kernel and
+its plain version round alike and agree bit for bit even over op4's 129 GN
+trips, where a few-ULP difference can send a patch elsewhere; against the
+JAX package they differ by reassociation only.
 
 Deviation from the reference (documented, same as the JAX package): when a
 patch's initial position is already out of bounds, pweight is defined as
@@ -25,6 +32,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import DISConfig
 
@@ -51,6 +59,32 @@ class SearchResult(NamedTuple):
     iters: Optional[torch.Tensor] = None  # (N,) int32 GN iterations run
 
 
+def _patch_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of each patch (N, psz, psz, C) -> (N,), in the order of the CUDA
+    kernels' block_sum (csrc/gn_machine.cuh): channels per pixel, then a
+    butterfly over each warp of 32 pixels (zeros past psz^2), then the
+    warps in order."""
+    n, psz, _, c = x.shape
+    v = x[..., 0]
+    for k in range(1, c):
+        v = v + x[..., k]
+    npix = psz * psz
+    nt = -(-npix // 32) * 32
+    v = F.pad(v.reshape(n, npix), (0, nt - npix)).reshape(n, nt // 32, 32)
+    for half in (16, 8, 4, 2, 1):
+        v = v[..., :half] + v[..., half:2 * half]
+    s = v[:, 0, 0]
+    for q in range(1, nt // 32):
+        s = s + v[:, q, 0]
+    return s
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded as one division, as the kernels divide: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal instead."""
+    return x / torch.full((), float(d), dtype=x.dtype, device=x.device)
+
+
 def _loss(diff: torch.Tensor, cfg: DISConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Residual transform + weight image (LossComputeErrorImage,
     patch.cpp:223-262).  Returns (pdiff, pweight); pweight = |pdiff|."""
@@ -61,7 +95,7 @@ def _loss(diff: torch.Tensor, cfg: DISConfig) -> Tuple[torch.Tensor, torch.Tenso
     elif cfg.cost == 2:  # pseudo-Huber, b = normoutlier (oflow.h:63)
         bsq = cfg.normoutlier * cfg.normoutlier
         pd = torch.sign(diff) * torch.sqrt(
-            2.0 * bsq * (torch.sqrt(1.0 + diff * diff / bsq) - 1.0)
+            2.0 * bsq * (torch.sqrt(1.0 + _div(diff * diff, bsq)) - 1.0)
         )
     else:
         raise ValueError(f"unhandled cost {cfg.cost}")
@@ -101,11 +135,11 @@ def build_templates(
     dx = _gather(dx_a, idx)
     dy = _gather(dy_a, idx)
     if cfg.patch_norm:  # patch.cpp:330-331
-        tmp = tmp - tmp.mean(dim=(1, 2, 3), keepdim=True)
-    h00 = (dx * dx).sum(dim=(1, 2, 3))
+        tmp = tmp - _div(_patch_sum(tmp), cfg.novals)[:, None, None, None]
+    h00 = _patch_sum(dx * dx)
     if cfg.nop == 2:
-        h01 = (dx * dy).sum(dim=(1, 2, 3))
-        h11 = (dy * dy).sum(dim=(1, 2, 3))
+        h01 = _patch_sum(dx * dy)
+        h11 = _patch_sum(dy * dy)
         # Singular guard: if det == 0, bump the diagonal (patch.cpp:78-82).
         det = h00 * h11 - h01 * h01
         bump = torch.where(det == 0.0, 1e-10, 0.0)
@@ -206,17 +240,20 @@ def optimize_level(
         col1 = (1.0 - ry) * tap(y0, my0, x1, mx1) + ry * tap(y1, my1, x1, mx1)
         return (1.0 - rx) * col0 + rx * col1  # (N, psz_j, psz_i, C)
 
+    def bcast(v):  # (N,) -> (N, 1, 1, 1)
+        return v[:, None, None, None]
+
     if cfg.cost == 10:
-        tn = torch.sqrt((T * T).sum(dim=(1, 2, 3), keepdim=True))
+        tn = bcast(torch.sqrt(_patch_sum(T * T)))
 
     def residual(pt):
         raw = extract(pt)
         if cfg.patch_norm:
-            raw = raw - raw.mean(dim=(1, 2, 3), keepdim=True)
+            raw = raw - bcast(_div(_patch_sum(raw), novals))
         if cfg.cost == 10:
             # Real NCC-style cost (README's costfct 10 — a silent no-op in
             # the reference, patch.cpp:230-262).
-            rn = torch.sqrt((raw * raw).sum(dim=(1, 2, 3), keepdim=True))
+            rn = bcast(torch.sqrt(_patch_sum(raw * raw)))
             diff = raw * (tn / torch.clamp(rn, min=1e-10)) - T
             return diff, torch.abs(diff)
         return _loss(raw - T, cfg)
@@ -245,9 +282,9 @@ def optimize_level(
         if first:
             delta_p = torch.zeros_like(p_iter)
         else:
-            b0 = (tmpl.dx * pdiff).sum(dim=(1, 2, 3))
+            b0 = _patch_sum(tmpl.dx * pdiff)
             if nop == 2:
-                b1 = (tmpl.dy * pdiff).sum(dim=(1, 2, 3))
+                b1 = _patch_sum(tmpl.dy * pdiff)
                 du = (h11 * b0 - h01 * b1) / det
                 dv = (h00 * b1 - h01 * b0) / det
                 delta_p = torch.stack([du, dv], dim=1)
@@ -280,7 +317,7 @@ def optimize_level(
             dpsq_n = (delta_p * delta_p).sum(dim=1)
             mares_old_n = mares
         dpsq_init_n = torch.where(cnt_n == 1, dpsq_n, dpsq_init)
-        mares_n = pw_new.sum(dim=(1, 2, 3)) / novals
+        mares_n = _div(_patch_sum(pw_new), novals)
         oob_start = oob0 if first else torch.zeros_like(oob0)
         mares_n = torch.where(oob_start, 1e5, mares_n)
 
@@ -322,3 +359,12 @@ def level_search_reference(ima, dxa, dya, imb, pt_ref, p_init, cfg: DISConfig,
     tmpl = build_templates(ima, dxa, dya, pt_ref, cfg, pad)
     res = optimize_level(imb, tmpl, pt_ref, p_init, cfg, w, h, pad, camlr=camlr)
     return res._replace(pweight=None, absw=_abs_weights(res.pweight, cfg))
+
+
+def gn_search_reference(imb, tmpl: PatchTemplates, pt_ref, p_init, cfg: DISConfig,
+                        w: int, h: int, pad: int,
+                        camlr: Optional[int] = None) -> SearchResult:
+    """Plain version of the GN-search kernel: the vectorised trip loop over
+    prebuilt templates; pweight (N, psz, psz, C) comes back, as on the JAX
+    package's GN route (of_dis_tpu/models/inverse_search.py:342-353)."""
+    return optimize_level(imb, tmpl, pt_ref, p_init, cfg, w, h, pad, camlr=camlr)

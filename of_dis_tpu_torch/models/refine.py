@@ -12,9 +12,13 @@ FDF1.0.1 C kernels opticalflow_aux.c and solver.c):
   - weighted-Laplacian RHS update                 (opticalflow_aux.c:171-199)
   - red-black coupled SOR (solver.c:19-72 is the numeric spec)
 
-The whole inner loop of a level runs in one CUDA kernel on the card
-(csrc/refine_inner.cu via ops/kernels.py::refine_inner); the step functions
-compose its plain version, `refine_inner_reference`.
+For flow (nop = 2) the whole inner loop of a level runs in one CUDA kernel
+on the card (csrc/refine_inner.cu via ops/kernels.py::refine_inner); the
+step functions compose its plain version, `refine_inner_reference`.  For
+stereo (nop = 1, RefLevelDE) the steps run as PyTorch ops and the scalar SOR
+as a CUDA kernel (csrc/sor_rb.cu via ops/kernels.py::sor_scalar), whose
+plain version is `sor_scalar_rb`; after each inner iteration the disparity
+is clamped to the camera's sign.
 
 Inner-iteration count scales with pyramid level: n_inner = tv_innerit *
 (level+1) (refine_variational.cpp:36).
@@ -250,7 +254,8 @@ def _checkerboard(h: int, w: int, device) -> torch.Tensor:
 def sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega: float):
     """Coupled red-black SOR on the 5-point system (numeric spec:
     sor_coupled_slow_but_readable, solver.c:19-72).  Within a colour, du is
-    updated first and dv uses the new du, exactly like the reference."""
+    updated first and dv uses the new du, exactly like the reference.  The
+    plain version of the sor_coupled kernel (csrc/sor_rb.cu)."""
     h, w = du.shape
     red = _checkerboard(h, w, du.device)
     sum_dpsis = _up(wv) + _left(wh) + wv + wh
@@ -273,6 +278,28 @@ def sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega
         du, dv = half_step(du, dv, red)
         du, dv = half_step(du, dv, ~red)
     return du, dv
+
+
+def sor_scalar_rb(du, a11, b1, wh, wv, iterations: int, omega: float):
+    """Scalar red-black SOR (spec: sor_coupled_slow_but_readable_DE,
+    solver.c:428-466).  The plain version of the sor_scalar kernel
+    (csrc/sor_rb.cu), rounded as the TPU kernel rounds
+    (of_dis_tpu/ops/pallas_kernels.py:1357-1365): omega / A11 first, then
+    (1 - omega) du + that times B1."""
+    h, w = du.shape
+    red = _checkerboard(h, w, du.device)
+    inv = omega / (a11 + _up(wv) + _left(wh) + wv + wh)
+
+    def nb(x):
+        return _up(wv * x) + _left(wh * x) + wv * _down(x) + wh * _right(x)
+
+    def half_step(du, color_mask):
+        return torch.where(color_mask, (1.0 - omega) * du + inv * (b1 + nb(du)), du)
+
+    for _ in range(iterations):
+        du = half_step(du, red)
+        du = half_step(du, ~red)
+    return du
 
 
 # ---------------------------------------------------------------------------
@@ -303,21 +330,36 @@ def refine_level(
     im2: torch.Tensor,
     level: int,
     cfg: DISConfig,
+    camlr: int = 0,
 ) -> torch.Tensor:
-    """One scale of variational refinement (RefLevelOF,
-    refine_variational.cpp:152-336)."""
-    if cfg.nop != 2:
-        raise NotImplementedError("stereo refinement (RefLevelDE) is not ported yet")
+    """One scale of variational refinement (RefLevelOF / RefLevelDE,
+    refine_variational.cpp:152-336).  camlr picks the stereo sign clamp."""
     n_inner = cfg.tv_innerit * (level + 1)   # refine_variational.cpp:36
     qa = 0.25 * cfg.tv_alpha
     hd3 = cfg.tv_delta * 0.5 / 3.0
     hg3 = cfg.tv_gamma * 0.5 / 3.0
 
     wx = flow[..., 0].contiguous()
-    wy = flow[..., 1].contiguous()
-    im2w, mask = image_warp(im2, wx, wy)
+    if cfg.nop == 2:
+        wy = flow[..., 1].contiguous()
+        im2w, mask = image_warp(im2, wx, wy)
+        derivs = get_derivatives(im1, im2w)
+        uu, vv = kernels.refine_inner(
+            wx, wy, mask, derivs, n_inner, cfg.tv_solverit, cfg.tv_sor, qa, hd3, hg3
+        )
+        return torch.stack([uu, vv], dim=-1)
+
+    # Stereo: a single field; the vertical flow is 0 throughout.
+    zero = torch.zeros_like(wx)
+    im2w, mask = image_warp(im2, wx, zero)
     derivs = get_derivatives(im1, im2w)
-    uu, vv = kernels.refine_inner(
-        wx, wy, mask, derivs, n_inner, cfg.tv_solverit, cfg.tv_sor, qa, hd3, hg3
-    )
-    return torch.stack([uu, vv], dim=-1)
+    du = zero
+    uu = wx
+    for _ in range(n_inner):
+        wh, wv = compute_smoothness(uu, zero, qa)
+        a11, _, _, b1, _ = compute_data(du, zero, mask, derivs, hd3, hg3, 1)
+        b1 = sub_laplacian(b1, wx, wh, wv)
+        du = kernels.sor_scalar(du, a11, b1, wh, wv, cfg.tv_solverit, cfg.tv_sor)
+        # Disparity sign clamp (refine_variational.cpp:299-314).
+        uu = (wx + du).clamp(max=0.0) if camlr == 0 else (wx + du).clamp(min=0.0)
+    return uu[..., None]

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), named by
-a hash of its source so that an edited source never loads a stale build.
+a hash of its source and of the shared headers (`csrc/*.cuh`) so that an
+edited source never loads a stale build.
 All sources build in parallel, one nvcc each.  The libraries go to
 `build/of_dis_tpu_torch/` at the root of the checkout, which .gitignore
 lists.  Nothing from outside the package's `csrc/` is compiled.
@@ -48,7 +49,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{src.stem}_{digest[:16]}.so"
 
 

@@ -7,13 +7,21 @@ card.  `launches` counts kernel launches (never plain-version calls), so a
 run can show that it went through the kernels.
 
 The plain versions live beside the step functions they compose
-(models/inverse_search.py::level_search_reference,
-models/refine.py::refine_inner_reference).  Those modules call the wrappers
-here, so this module imports none of models/ at load time; each wrapper
-takes what it needs from there when it is called.
+(models/inverse_search.py::level_search_reference, ::gn_search_reference;
+models/refine.py::refine_inner_reference, ::sor_scalar_rb,
+::sor_coupled_rb).  Those modules call the wrappers here, so this module
+imports none of models/ at load time; each wrapper takes what it needs from
+there when it is called.
 
   level_search   csrc/level_search.cu   replaces of_dis_tpu/ops/pallas_kernels.py::_level_kernel
+  gn_search      csrc/gn_search.cu      replaces of_dis_tpu/ops/pallas_kernels.py::_gn_kernel
+                                        and ::_gn_kernel_tiled
   refine_inner   csrc/refine_inner.cu   replaces of_dis_tpu/ops/pallas_kernels.py::_refine_inner_kernel
+  sor_scalar     csrc/sor_rb.cu         replaces of_dis_tpu/ops/pallas_kernels.py::_sor_scalar_kernel
+  sor_coupled    csrc/sor_rb.cu         replaces of_dis_tpu/ops/pallas_kernels.py::_sor_coupled_kernel
+
+level_search and gn_search share the GN state machine (csrc/gn_machine.cuh);
+`search_route` picks one of them per level.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ import torch
 from ..config import DISConfig
 from . import build
 
-launches: Dict[str, int] = {"level_search": 0, "refine_inner": 0}
+launches: Dict[str, int] = {"level_search": 0, "gn_search": 0, "refine_inner": 0,
+                            "sor_scalar": 0, "sor_coupled": 0}
 
 
 def reset_launches() -> None:
@@ -53,6 +62,56 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# Which search kernel a level runs
+# ---------------------------------------------------------------------------
+
+# The JAX package's whole-level kernel budget (of_dis_tpu/ops/pallas_kernels.py
+# :809, :1220, :1242-1246).
+_TPU_STACK_FACTOR = 4.5
+_TPU_LEVEL_BUDGET = 80 * 2**20
+_TPU_LEVEL_MAX_PATCHES = 512
+_TPU_LEVEL_MAX_PIXELS = 12288
+
+
+def _tpu_level_words(hp, wp, c, np_, psz, sy, sx) -> int:
+    return (2 * hp * wp * c + hp * sy * np_ + (wp + 32 + -(-sx // 32) * 32) * sy * np_ * c
+            + 2 * sx * c * sy * np_ + 10 * c * psz * psz * np_ + 64)
+
+
+def search_route(hp: int, wp: int, c: int, n: int, psz: int, sy: int, sx: int) -> str:
+    """"level" (level_search: templates extracted in the kernel) or "gn"
+    (templates built beforehand, then gn_search) for a padded (hp, wp, c)
+    level with n patches and (sy, sx) search windows.
+
+    This reproduces the JAX package's split (of_dis_tpu/ops/pallas_kernels.py
+    ::gn_route with _level_shape_ok and _level_words), so that each TPU
+    kernel's counterpart runs where that kernel runs: its "level" is
+    "level"; its "untiled" and "tiled<ps>" (one TPU kernel in two layouts)
+    are "gn"; its "xla" (a window no larger than psz) stays on "level".
+    The split is the TPU's VMEM budget, not a finding on the H100; a later
+    change may redraw it with H100 numbers."""
+    if not (sy > psz and sx > psz):
+        return "level"
+    np_ = -(-n // 128) * 128
+    if np_ > _TPU_LEVEL_MAX_PATCHES or hp * wp > _TPU_LEVEL_MAX_PIXELS:
+        return "gn"
+    words = _tpu_level_words(hp, wp, c, np_, psz, sy, sx)
+    return "level" if words * _TPU_STACK_FACTOR * 4 <= _TPU_LEVEL_BUDGET else "gn"
+
+
+def _search_consts(cfg: DISConfig, camlr: int) -> tuple:
+    """The GN machine's scalar arguments after (sy, sx), as the C launchers take them."""
+    return (cfg.max_iter, cfg.min_iter, cfg.cost, int(cfg.patch_norm),
+            -1 if cfg.mode != "stereo" else int(camlr),
+            cfg.normoutlier, cfg.dp_thresh * cfg.dp_thresh, cfg.dr_thresh,
+            cfg.res_thresh, cfg.outlier_thresh * cfg.outlier_thresh, cfg.minerrval)
 
 
 # ---------------------------------------------------------------------------
@@ -105,17 +164,75 @@ def level_search(ima, dxa, dya, imb, pt_ref, p_init, cfg: DISConfig,
         rc = fn(
             _ptr(ima), _ptr(dxa), _ptr(dya), _ptr(imb), _ptr(pt_ref), _ptr(p_init),
             _ptr(p), _ptr(pt), _ptr(absw), _ptr(conv), _ptr(iters),
-            n, hp, wp, c, psz, nop, pad, w, h, sy, sx,
-            cfg.max_iter, cfg.min_iter, cfg.cost, int(cfg.patch_norm),
-            -1 if cfg.mode != "stereo" else int(camlr),
-            cfg.normoutlier, cfg.dp_thresh * cfg.dp_thresh, cfg.dr_thresh,
-            cfg.res_thresh, cfg.outlier_thresh * cfg.outlier_thresh, cfg.minerrval,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+            n, hp, wp, c, psz, nop, pad, w, h, sy, sx, *_search_consts(cfg, camlr),
+            _stream(dev),
         )
     _raise_on(rc, "level_search")
     launches["level_search"] += 1
     return SearchResult(p=p, pt=pt, pweight=None, converged=conv.bool(), absw=absw,
                         iters=iters)
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: Gauss-Newton patch search over templates built beforehand
+# ---------------------------------------------------------------------------
+
+def _gn_search_lib():
+    lib = build.load("gn_search")
+    fn = lib.gn_search_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 16
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gn_search(imb, tmpl, pt_ref, p_init, cfg: DISConfig, w: int, h: int, pad: int,
+              camlr: Optional[int] = None):
+    """Search one pyramid level from prebuilt PatchTemplates `tmpl` (tmp,
+    dx, dy (N, psz, psz, C); hes (N, 3) for flow, (N, 1) for stereo) in the
+    padded (Hp, Wp, C) target image imb; pt_ref (N, 2), p_init (N, nop).
+    Returns a SearchResult with pweight (N, psz, psz, C) and iters set."""
+    from ..models.inverse_search import SearchResult, gn_search_reference
+
+    if imb.device.type == "cpu":
+        return gn_search_reference(imb, tmpl, pt_ref, p_init, cfg, w, h, pad, camlr)
+    if imb.device.type != "cuda":
+        raise ValueError(f"gn_search: unsupported device {imb.device}")
+    if camlr is None:
+        camlr = cfg.camlr
+    hp, wp, c = imb.shape
+    n = pt_ref.shape[0]
+    psz, nop = cfg.patch_size, cfg.nop
+    if psz not in (8, 12) or c not in (1, 3) or n < 1:
+        raise ValueError(f"gn_search: unsupported psz={psz}, C={c}, N={n}")
+    dev = imb.device
+    _check("imb", imb, (hp, wp, c), dev)
+    for name, t in (("tmp", tmpl.tmp), ("dx", tmpl.dx), ("dy", tmpl.dy)):
+        _check(name, t, (n, psz, psz, c), dev)
+    _check("hes", tmpl.hes, (n, 3 if nop == 2 else 1), dev)
+    _check("pt_ref", pt_ref, (n, 2), dev)
+    _check("p_init", p_init, (n, nop), dev)
+    sy = min(2 * psz + 2, hp)
+    sx = min(2 * psz + 2, wp)
+    f32 = dict(dtype=torch.float32, device=dev)
+    p = torch.empty((n, nop), **f32)
+    pt = torch.empty((n, 2), **f32)
+    pweight = torch.empty((n, psz, psz, c), **f32)
+    conv = torch.empty((n,), dtype=torch.int32, device=dev)
+    iters = torch.empty((n,), dtype=torch.int32, device=dev)
+    fn = _gn_search_lib()
+    with torch.cuda.device(dev):
+        rc = fn(
+            _ptr(tmpl.tmp), _ptr(tmpl.dx), _ptr(tmpl.dy), _ptr(tmpl.hes), _ptr(imb),
+            _ptr(pt_ref), _ptr(p_init),
+            _ptr(p), _ptr(pt), _ptr(pweight), _ptr(conv), _ptr(iters),
+            n, hp, wp, c, psz, nop, pad, w, h, sy, sx, *_search_consts(cfg, camlr),
+            _stream(dev),
+        )
+    _raise_on(rc, "gn_search")
+    launches["gn_search"] += 1
+    return SearchResult(p=p, pt=pt, pweight=pweight, converged=conv.bool(), iters=iters)
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +284,75 @@ def refine_inner(wx, wy, mask, derivs, n_inner: int, solver_it: int,
             _ptr(uu), _ptr(vv), _ptr(scratch),
             h, w, c, int(n_inner), int(solver_it),
             float(omega), float(qa), float(hd3), float(hg3),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+            _stream(dev),
         )
     _raise_on(rc, "refine_inner")
     launches["refine_inner"] += 1
     return uu, vv
+
+
+# ---------------------------------------------------------------------------
+# Kernels D and E: red-black SOR, scalar (stereo) and coupled (flow)
+# ---------------------------------------------------------------------------
+
+def _sor_lib(name: str, n_ptr: int):
+    fn = getattr(build.load("sor_rb"), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_fields(name: str, fields, iterations: int) -> torch.device:
+    dev = fields[0].device
+    shape = fields[0].shape
+    if len(shape) != 2 or iterations < 1:
+        raise ValueError(f"{name}: unsupported shape {tuple(shape)}, iterations={iterations}")
+    for k, t in enumerate(fields):
+        _check(f"{name} field {k}", t, shape, dev)
+    return dev
+
+
+def sor_scalar(du, a11, b1, wh, wv, iterations: int, omega: float):
+    """`iterations` red-black sweeps of the scalar (stereo) SOR; all fields
+    (h, w).  Returns the new du (h, w)."""
+    if du.device.type == "cpu":
+        from ..models.refine import sor_scalar_rb
+
+        return sor_scalar_rb(du, a11, b1, wh, wv, iterations, omega)
+    if du.device.type != "cuda":
+        raise ValueError(f"sor_scalar: unsupported device {du.device}")
+    dev = _check_fields("sor_scalar", (du, a11, b1, wh, wv), iterations)
+    h, w = du.shape
+    out = torch.empty_like(du)
+    fn = _sor_lib("sor_scalar_launch", 6)
+    with torch.cuda.device(dev):
+        rc = fn(_ptr(du), _ptr(a11), _ptr(b1), _ptr(wh), _ptr(wv), _ptr(out),
+                h, w, int(iterations), float(omega), _stream(dev))
+    _raise_on(rc, "sor_scalar")
+    launches["sor_scalar"] += 1
+    return out
+
+
+def sor_coupled(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega: float):
+    """`iterations` red-black sweeps of the coupled (flow) SOR; all fields
+    (h, w).  Returns the new (du, dv)."""
+    if du.device.type == "cpu":
+        from ..models.refine import sor_coupled_rb
+
+        return sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations, omega)
+    if du.device.type != "cuda":
+        raise ValueError(f"sor_coupled: unsupported device {du.device}")
+    dev = _check_fields("sor_coupled", (du, dv, a11, a12, a22, b1, b2, wh, wv), iterations)
+    h, w = du.shape
+    du_out = torch.empty_like(du)
+    dv_out = torch.empty_like(dv)
+    fn = _sor_lib("sor_coupled_launch", 11)
+    with torch.cuda.device(dev):
+        rc = fn(_ptr(du), _ptr(dv), _ptr(a11), _ptr(a12), _ptr(a22), _ptr(b1), _ptr(b2),
+                _ptr(wh), _ptr(wv), _ptr(du_out), _ptr(dv_out),
+                h, w, int(iterations), float(omega), _stream(dev))
+    _raise_on(rc, "sor_coupled")
+    launches["sor_coupled"] += 1
+    return du_out, dv_out

@@ -86,13 +86,15 @@ def test_port_imports_neither_jax_nor_jax_package():
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the CUDA default does not raise here")
-    from of_dis_tpu_torch import dis_flow
+    from of_dis_tpu_torch import dis_flow, dis_stereo
     from of_dis_tpu_torch.models.dis import resolve_device
 
     img = np.zeros((32, 32), np.float32)
-    cfg = tcfg.DISConfig(sc_f=1, sc_l=0)
+    for op in (2, 4):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            dis_flow(img, img, tcfg.operating_point(op, 32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        dis_flow(img, img, cfg)
+        dis_stereo(img, img, tcfg.DISConfig(mode="stereo", sc_f=1, sc_l=0))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -100,7 +102,7 @@ def test_unported_features_raise():
     from of_dis_tpu_torch import dis_raw
 
     img = np.zeros((32, 32), np.float32)
-    with pytest.raises(NotImplementedError):
-        dis_raw(img, img, tcfg.DISConfig(mode="stereo", sc_f=1, sc_l=0), device="cpu")
-    with pytest.raises(NotImplementedError):
-        dis_raw(img, img, tcfg.DISConfig(sc_f=1, sc_l=0, use_fb_merge=True), device="cpu")
+    for mode in ("flow", "stereo"):
+        with pytest.raises(NotImplementedError):
+            dis_raw(img, img, tcfg.DISConfig(mode=mode, sc_f=1, sc_l=0, use_fb_merge=True),
+                    device="cpu")

@@ -1,7 +1,7 @@
 """Port (of_dis_tpu_torch) end to end on the CPU: against the JAX package,
 against the reference binaries' small goldens (the per-case rule of
-tests/test_golden.py), against the true flow of the textured pair, and
-through its CLI."""
+tests/test_golden.py; flow and stereo), against the true flow of the
+textured pair, and through its CLI."""
 
 import dataclasses
 import os
@@ -19,11 +19,13 @@ from of_dis_tpu_torch.config import from_reference
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CASES = {c["case"]: c for c in load_manifest()["cases"]}
-# Every small golden case on this slice's path (optical flow, no fb-merge, 8-px patches).
+# Every small golden case on the port's paths (flow op1-4 and stereo op2;
+# the fb-merge cases wait for that slice).
 SLICE_CASES = [
     "of_int_op1", "of_int_op2", "of_rgb_op2", "of_grad_op2",
     "of_tex_op1", "of_tex_op2", "of_rot_op2", "of_big_op2",
     "of_int_l1", "of_int_huber", "of_int_nonorm",
+    "de_int_op2", "de_rgb_op2", "of_int_op3", "of_int_op4", "of_int_psz12",
 ]
 # tests/test_golden.py:25-34: max(2 x epe_captured, 0.02), and 0.30 where
 # few-ULP differences flip equally valid GN trajectories on raw texture.
@@ -44,7 +46,11 @@ def port_outputs():
             cfg, _, gradmag = cfg_for_case(case, img1.shape[1])
             ours = dis_raw(img1, img2, from_reference(dataclasses.asdict(cfg)),
                            gradmag_input=gradmag, device="cpu").numpy()
-            cache[name] = (ours, io.read_flo(os.path.join(GOLD, case["out"])))
+            path = os.path.join(GOLD, case["out"])
+            # a .pfm holds the disparity negated (run_dense.cpp:75)
+            golden = (io.read_pfm(path, negate=True)[..., None] if path.endswith(".pfm")
+                      else io.read_flo(path))
+            cache[name] = (ours, golden)
         return cache[name]
 
     return run

@@ -13,10 +13,18 @@ import numpy as np
 import pytest
 import torch
 
-from of_dis_tpu_torch import DISConfig, dis_flow, operating_point
+from of_dis_tpu_torch import DISConfig, dis_flow, dis_stereo, operating_point
 from of_dis_tpu_torch.models.grid import level_geometry
-from of_dis_tpu_torch.models.inverse_search import level_search_reference
-from of_dis_tpu_torch.models.refine import refine_inner_reference
+from of_dis_tpu_torch.models.inverse_search import (
+    build_templates,
+    gn_search_reference,
+    level_search_reference,
+)
+from of_dis_tpu_torch.models.refine import (
+    refine_inner_reference,
+    sor_coupled_rb,
+    sor_scalar_rb,
+)
 from of_dis_tpu_torch.ops import kernels
 from of_dis_tpu_torch.ops import pyramid as pyr
 
@@ -69,6 +77,51 @@ def test_level_search_kernel_matches_plain(cuda, mode, c, psz, cost):
     assert (res.converged == ref.converged).float().mean() >= 0.99
 
 
+@pytest.mark.parametrize("mode,c,psz,cost,camlr", [
+    ("flow", 1, 12, 0, 0), ("flow", 3, 12, 0, 0), ("flow", 1, 12, 10, 0), ("flow", 1, 8, 0, 0),
+    ("stereo", 1, 12, 0, 0), ("stereo", 3, 12, 0, 1), ("stereo", 1, 8, 0, 0),
+])
+def test_gn_search_kernel_matches_plain(cuda, mode, c, psz, cost, camlr):
+    cfg = DISConfig(mode=mode, channels=c, sc_f=1, sc_l=0, max_iter=8, min_iter=8,
+                    patch_size=psz, overlap=0.4 if psz == 8 else 0.75, cost=cost,
+                    camlr=camlr).validate()
+    ima, dxa, dya, imb, pt_ref, p0, _, lw, lh, pad = _level_args(cfg, c, cuda)
+    tmpl = build_templates(ima, dxa, dya, pt_ref, cfg, pad)
+    res = kernels.gn_search(imb, tmpl, pt_ref, p0, cfg, lw, lh, pad)
+    ref = gn_search_reference(imb, tmpl, pt_ref, p0, cfg, lw, lh, pad)
+    torch.testing.assert_close(res.p, ref.p, rtol=0, atol=2e-3)
+    torch.testing.assert_close(res.pt, ref.pt, rtol=0, atol=2e-3)
+    aw = lambda r: 1.0 / r.pweight.clamp(min=cfg.minerrval).sum(-1)  # noqa: E731
+    torch.testing.assert_close(aw(res), aw(ref), rtol=1e-2, atol=1e-4)
+    assert (res.converged == ref.converged).float().mean() >= 0.99
+
+
+def _sor_system(h, w, device, seed):
+    rng = np.random.RandomState(seed)
+    f = lambda scale, off=0.0: torch.as_tensor(  # noqa: E731
+        (rng.randn(h, w) * scale + off).astype(np.float32), device=device)
+    wh = (f(0.5, 1.0)).abs()
+    wv = (f(0.5, 1.0)).abs()
+    wh[:, -1] = 0.0
+    wv[-1, :] = 0.0
+    return dict(du=f(0.3), dv=f(0.3), a11=f(0.5, 2.0).abs(), a12=f(0.2),
+                a22=f(0.5, 2.0).abs(), b1=f(1.0), b2=f(1.0), wh=wh, wv=wv)
+
+
+@pytest.mark.parametrize("h,w", [(13, 17), (14, 32), (56, 128), (448, 1024)])
+def test_sor_kernels_match_plain(cuda, h, w):
+    s = _sor_system(h, w, cuda, seed=h + w)
+    names = ("du", "a11", "b1", "wh", "wv")
+    out = kernels.sor_scalar(*[s[k] for k in names], 3, 1.6)
+    torch.testing.assert_close(out, sor_scalar_rb(*[s[k] for k in names], 3, 1.6),
+                               rtol=1e-5, atol=1e-5)
+    names = ("du", "dv", "a11", "a12", "a22", "b1", "b2", "wh", "wv")
+    du, dv = kernels.sor_coupled(*[s[k] for k in names], 3, 1.6)
+    rdu, rdv = sor_coupled_rb(*[s[k] for k in names], 3, 1.6)
+    torch.testing.assert_close(du, rdu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dv, rdv, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("h,w,c,n_inner", [(13, 17, 1, 3), (56, 128, 1, 4), (56, 128, 3, 4),
                                            (448, 1024, 1, 1)])
 def test_refine_inner_kernel_matches_plain(cuda, h, w, c, n_inner):
@@ -87,17 +140,52 @@ def test_refine_inner_kernel_matches_plain(cuda, h, w, c, n_inner):
     torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-4)
 
 
-def test_dis_flow_on_card_matches_cpu_and_counts_launches(cuda):
+def _routes(cfg, h, w):
+    """search_route of every level of an (h, w) pair (h, w divisible by 2^sc_f)."""
+    psz = cfg.patch_size
+    out = []
+    for sl in range(cfg.sc_f, cfg.sc_l - 1, -1):
+        lh, lw = h >> sl, w >> sl
+        hp, wp = lh + 2 * psz, lw + 2 * psz
+        out.append(kernels.search_route(hp, wp, cfg.channels, level_geometry(lw, lh, cfg).n_patches,
+                                        psz, min(2 * psz + 2, hp), min(2 * psz + 2, wp)))
+    return out
+
+
+@pytest.mark.parametrize("op", [2, 4])
+def test_dis_flow_on_card_matches_cpu_and_counts_launches(cuda, op):
     img1, img2 = _smooth_pair(h=96, w=128)
-    cfg = operating_point(2, 128)
+    cfg = operating_point(op, 128)
+    routes = _routes(cfg, 96, 128)
     kernels.reset_launches()
     gpu = dis_flow(img1, img2, cfg, device=cuda)
     torch.cuda.synchronize()
-    assert kernels.launches == {"level_search": cfg.n_scales, "refine_inner": cfg.n_scales}
+    assert kernels.launches == {
+        "level_search": routes.count("level"), "gn_search": routes.count("gn"),
+        "refine_inner": cfg.n_scales, "sor_scalar": 0, "sor_coupled": 0}
     cpu = dis_flow(img1, img2, cfg, device="cpu")
     epe = (gpu.cpu() - cpu).pow(2).sum(-1).sqrt().mean()
     assert float(epe) < 0.05
     assert torch.equal(gpu, dis_flow(img1, img2, cfg, device=cuda))
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_dis_stereo_on_card_matches_cpu_and_counts_launches(cuda, c):
+    left, _ = _smooth_pair(h=96, w=136, c=c)
+    left, right = left[:, :128], left[:, 3:131]
+    cfg = operating_point(2, 128, mode="stereo", channels=c)
+    routes = _routes(cfg, 96, 128)
+    kernels.reset_launches()
+    gpu = dis_stereo(left, right, cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert kernels.launches == {
+        "level_search": routes.count("level"), "gn_search": routes.count("gn"),
+        "refine_inner": 0, "sor_coupled": 0,
+        # one launch per inner iteration: n_inner = tv_innerit * (level + 1)
+        "sor_scalar": sum(cfg.tv_innerit * (sl + 1) for sl in range(cfg.sc_l, cfg.sc_f + 1))}
+    cpu = dis_stereo(left, right, cfg, device="cpu")
+    assert float((gpu.cpu() - cpu).abs().mean()) < 0.05
+    assert float(gpu.max()) <= 0.0
 
 
 def test_wrappers_reject_bad_inputs(cuda):

@@ -1,0 +1,46 @@
+"""Port (of_dis_tpu_torch) vs JAX package: which search kernel each level
+runs.  ops/kernels.py::search_route must reproduce the JAX package's
+gn_route (of_dis_tpu/ops/pallas_kernels.py:1259) under the mapping
+"level" -> "level", "untiled" / "tiled<ps>" -> "gn", "xla" -> "level", on
+every level of op1-4 flow and op2 stereo, gray and RGB, at the reference's
+QA size (1024x436) and at the small goldens' size (256x160).  Pure shape
+arithmetic."""
+
+import pytest
+
+from of_dis_tpu.config import operating_point
+from of_dis_tpu.models.grid import level_geometry
+from of_dis_tpu.ops.pallas_kernels import gn_route
+from of_dis_tpu_torch.ops.kernels import search_route
+
+CONFIGS = [(1, "flow"), (2, "flow"), (3, "flow"), (4, "flow"), (2, "stereo")]
+
+
+def _port_route(jax_route: str) -> str:
+    if jax_route.startswith("tiled") or jax_route == "untiled":
+        return "gn"
+    assert jax_route in ("level", "xla"), jax_route
+    return "level"
+
+
+@pytest.mark.parametrize("w,h", [(1024, 436), (256, 160)])
+@pytest.mark.parametrize("op,mode", CONFIGS)
+@pytest.mark.parametrize("c", [1, 3])
+def test_search_route_matches_gn_route(w, h, op, mode, c):
+    cfg = operating_point(op, w, mode=mode, channels=c)
+    scf = 1 << cfg.sc_f
+    hp0, wp0 = h + (-h) % scf, w + (-w) % scf
+    psz = cfg.patch_size
+    for sl in range(cfg.sc_f, cfg.sc_l - 1, -1):
+        lw, lh = wp0 >> sl, hp0 >> sl
+        n = level_geometry(lw, lh, cfg).n_patches
+        hp, wp = lh + 2 * psz, lw + 2 * psz  # build_pyramid pads psz each side
+        sy, sx = min(2 * psz + 2, hp), min(2 * psz + 2, wp)
+        want = _port_route(gn_route(hp, wp, c, n, psz, sy, sx))
+        assert search_route(hp, wp, c, n, psz, sy, sx) == want, (sl, hp, wp, n)
+
+
+def test_search_route_sends_small_windows_to_level():
+    """JAX's "xla" route (a window no larger than psz) stays on "level"."""
+    assert gn_route(12, 200, 1, 40, 12, 12, 26) == "xla"
+    assert search_route(12, 200, 1, 40, 12, 12, 26) == "level"

@@ -8,8 +8,11 @@ kernel against its plain PyTorch version on the card at the shapes the main
 paths give it, and drives seven paths at 1024x436 on tests/goldens/fullres
 through the entry points (dis_flow: operating point 2 gray, op1 gray, op2
 RGB, op3 gray, op4 gray; dis_stereo: op2 gray and RGB), each with the
-launch counters reset just before its run and read just after.  It checks
-the outputs against the reference binaries' goldens, the port's CPU path and
+launch counters reset just before its run and read just after.  gn_search
+must equal its plain version exactly on every call; refine_inner runs every
+call through each launch variant (block, cluster, grid), which must give the
+same bits, and prints each variant's time and the one refine_variant picks.
+It checks the outputs against the reference binaries' goldens, the port's CPU path and
 a second run, times pairs, profiles the device, runs the CLI (flow and
 stereo), and prints one JSON line per phase.  The line before the last
 lists every kernel with its times and bound; the last line is
@@ -68,8 +71,13 @@ PAIRS_TIMED = {"op2 gray": 10, "op3 gray": 10, "op4 gray": 5, "stereo gray": 10,
 PROFILED = {"op2 gray": 5, "op3 gray": 3, "op4 gray": 3, "stereo gray": 5}
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T_START, 1), **kw}),
+          flush=True)
 
 
 def epe(a: np.ndarray, b: np.ndarray) -> float:
@@ -213,7 +221,6 @@ def main() -> int:
     )
     from of_dis_tpu_torch.ops import build, kernels
 
-    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -231,9 +238,19 @@ def main() -> int:
     # ---- build ----
     t0 = time.perf_counter()
     libs = build.build_all()
-    ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "bytes smem" in ln]
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if any(w in ln for w in ("entry function", "registers", "spill"))]
              for k, v in build.build_log.items()}
     emit("build", seconds=round(time.perf_counter() - t0, 3), libraries=sorted(libs), ptxas=ptxas)
+    occ = {}
+    for psz in (8, 12):
+        for c in (1, 3):
+            for nop in (1, 2):
+                blocks, warps = kernels.gn_search_occupancy(psz, c, nop)
+                occ[f"psz{psz} C{c} nop{nop}"] = dict(blocks_per_sm=blocks,
+                                                     warps_per_sm=blocks * warps)
+    emit("gn_search occupancy", note="one warp per patch; resident blocks and warps per SM",
+         per_instance=occ)
 
     # ---- inputs: each path's pair, and every kernel call one pair makes ----
     inputs = {name: path_inputs(name) for name in PATHS}
@@ -274,18 +291,27 @@ def main() -> int:
         n_level = PATHS[name][5].get("level_search", 0)
         return lv[i] if kernel == "level_search" else lv[n_level + i]
 
-    def search_check(name, res, ref, cfg):
+    def search_check(name, res, ref, cfg, exact):
+        """Kernel vs plain search.  exact: every output equal (gn_search);
+        else p and pt within 2e-3 px and absw within 1e-2 (level_search)."""
         e_p = float((res.p - ref.p).abs().max())
         e_pt = float((res.pt - ref.pt).abs().max())
         absw_ok = bool(torch.allclose(result_absw(res, cfg), result_absw(ref, cfg),
                                       rtol=1e-2, atol=1e-4))
         conv_agree = float((res.converged == ref.converged).float().mean())
         iters_agree = float((res.iters == ref.iters).float().mean())
-        ok = e_p <= 2e-3 and e_pt <= 2e-3 and absw_ok and conv_agree >= 0.99
-        return dict(case=name, n=int(res.p.shape[0]), max_iter=cfg.max_iter,
+        line = dict(case=name, n=int(res.p.shape[0]), max_iter=cfg.max_iter,
                     max_abs_err_p=e_p, max_abs_err_pt=e_pt, absw_ok=absw_ok,
                     converged_agree=conv_agree, iters_agree=iters_agree,
-                    mean_trips=float(res.iters.double().mean() + 1), ok=ok)
+                    mean_trips=float(res.iters.double().mean() + 1))
+        if exact:
+            e_pw = float((res.pweight - ref.pweight).abs().max())
+            line.update(max_abs_err_pweight=e_pw,
+                        ok=(e_p == 0.0 and e_pt == 0.0 and e_pw == 0.0 and iters_agree == 1.0
+                            and conv_agree == 1.0))
+        else:
+            line["ok"] = e_p <= 2e-3 and e_pt <= 2e-3 and absw_ok and conv_agree >= 0.99
+        return line
 
     rows = {}  # kernel -> dict of the kernels line
 
@@ -306,18 +332,19 @@ def main() -> int:
         res = kernels.level_search(*a, **k)
         ref = level_search_reference(*a, **k)
         torch.cuda.synchronize()
-        line = search_check(name, res, ref, a[6])
+        line = search_check(name, res, ref, a[6], exact=False)
         line["level_hw"] = list(a[0].shape[:2])
         if "cost" not in name:
             ms = gpu_ms(torch, lambda: kernels.level_search(*a, **k), 50)
-            pms = gpu_ms(torch, lambda: level_search_reference(*a, **k), 5)
             b, by = bound_ms(*level_search_work(a, a[6], res.iters))
-            if name.startswith("op2 gray"):
+            line.update(ms=ms, bound_ms=b, bound_by=by)
+            if name.startswith("op2 gray"):  # the plain version is timed where the row sums
+                pms = gpu_ms(torch, lambda: level_search_reference(*a, **k), 5)
                 ls_ms += ms
                 ls_plain += pms
                 ls_bound += b
                 ls_bound_by = by
-            line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
+                line["plain_ms"] = pms
         emit("kernel level_search", **line)
         require(line["ok"], f"level_search disagrees with its plain version: {line}")
         ls_err = max(ls_err, line["max_abs_err_p"], line["max_abs_err_pt"])
@@ -326,27 +353,29 @@ def main() -> int:
         per="op2 gray", max_abs_err=ls_err, ms=ls_ms, plain_ms=ls_plain, bound_ms=ls_bound,
         bound_by=ls_bound_by)
 
-    # ---- kernel gn_search: every call of every path; times at op3 and op4 ----
+    # ---- kernel gn_search: every call of every path, exact; times at op3 and op4 ----
     gn_err = 0.0
     gn_ms = gn_plain = gn_bound = 0.0
     gn_bound_by = None
+    gn_level_ms = {}
     for name in PATHS:
         for i, (a, k) in enumerate(calls[name]["gn_search"]):
             case = f"{name} level {level_of(name, i, 'gn_search')}"
             res = kernels.gn_search(*a, **k)
             ref = gn_search_reference(*a, **k)
             torch.cuda.synchronize()
-            line = search_check(case, res, ref, a[4])
+            line = search_check(case, res, ref, a[4], exact=True)
             line["level_hw"] = list(a[0].shape[:2])
             if name in ("op3 gray", "op4 gray"):
                 ms = gpu_ms(torch, lambda: kernels.gn_search(*a, **k), 20)
-                pms = gpu_ms(torch, lambda: gn_search_reference(*a, **k), 3)
+                pms = gpu_ms(torch, lambda: gn_search_reference(*a, **k), 2)
                 b, by = bound_ms(*gn_search_work(a, a[4], res.iters))
                 if name == "op4 gray":
                     gn_ms += ms
                     gn_plain += pms
                     gn_bound += b
                     gn_bound_by = by
+                    gn_level_ms[case.split(" level ")[1]] = ms
                 line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
             emit("kernel gn_search", **line)
             require(line["ok"], f"gn_search disagrees with its plain version: {line}")
@@ -355,7 +384,7 @@ def main() -> int:
         source="gn_search.cu",
         replaces="of_dis_tpu/ops/pallas_kernels.py:538 and :560",
         per="op4 gray", max_abs_err=gn_err, ms=gn_ms, plain_ms=gn_plain, bound_ms=gn_bound,
-        bound_by=gn_bound_by)
+        bound_by=gn_bound_by, level_ms=gn_level_ms)
 
     # ---- kernel refine_inner: kernel vs plain version on the card ----
     ri_err = 0.0
@@ -374,15 +403,27 @@ def main() -> int:
     rcases = [(f"{name} level {inputs[name][2].sc_f - i}", a)
               for name in PATHS for i, (a, _) in enumerate(calls[name]["refine_inner"])]
     rcases.append(("random 448x1024", a_big))
+    ri_level_ms = {}
     for name, a in rcases:
-        uu, vv = kernels.refine_inner(*a)
+        h, w = a[0].shape
+        picked = kernels.refine_variant(h, w, a[3][0].shape[-1])
         ru, rv = refine_inner_reference(*a)
+        variants = kernels.refine_variants(h, w)
+        outs = {v: kernels.refine_inner(*a, variant=v) for v in variants}
         torch.cuda.synchronize()
+        uu, vv = outs[picked[0]]
+        bit_equal = all(torch.equal(o[0], uu) and torch.equal(o[1], vv) for o in outs.values())
         err = max(float((uu - ru).abs().max()), float((vv - rv).abs().max()))
-        ok = bool(torch.allclose(uu, ru, rtol=1e-4, atol=1e-4)
+        ok = bool(bit_equal and torch.allclose(uu, ru, rtol=1e-4, atol=1e-4)
                   and torch.allclose(vv, rv, rtol=1e-4, atol=1e-4))
-        line = dict(case=name, hw=list(a[0].shape), n_inner=int(a[4]), max_abs_err=err, ok=ok)
-        ms = gpu_ms(torch, lambda: kernels.refine_inner(*a), 50)
+        barriers = int(a[4]) * (2 + 2 * int(a[5])) - 1
+        variant_ms = {v: gpu_ms(torch, lambda v=v: kernels.refine_inner(*a, variant=v), 10)
+                      for v in variants}
+        line = dict(case=name, hw=[h, w], n_inner=int(a[4]), picked=list(picked),
+                    variants_bit_equal=bit_equal, max_abs_err=err, ok=ok,
+                    variant_ms=variant_ms, barriers=barriers,
+                    variant_us_per_barrier={v: t * 1e3 / barriers for v, t in variant_ms.items()})
+        ms = gpu_ms(torch, lambda: kernels.refine_inner(*a), 30)
         pms = gpu_ms(torch, lambda: refine_inner_reference(*a), 5)
         b, by = bound_ms(*refine_inner_work(a[0], a[3], a[4], a[5]))
         line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
@@ -391,13 +432,30 @@ def main() -> int:
             ri_plain += pms
             ri_bound += b
             ri_bound_by = by
+            ri_level_ms[name.split(" level ")[1]] = ms
         emit("kernel refine_inner", **line)
-        require(ok, f"refine_inner disagrees with its plain version: {line}")
+        require(ok, f"refine_inner variants disagree or leave their plain version: {line}")
         ri_err = max(ri_err, err)
+    # What a phase costs in each variant at op2's level shapes: times at
+    # (n_inner, solver_it) = (1, 1), (5, 1), (5, 5) fit fixed + n_inner *
+    # (smoothness and coefficients + 2 solver_it SOR half-steps), each phase
+    # with the barrier after it.
+    for name, a in rcases[:3]:
+        fit = {}
+        for v in kernels.refine_variants(*a[0].shape):
+            t = {(ni, si): gpu_ms(torch, lambda v=v, ni=ni, si=si: kernels.refine_inner(
+                *a[:4], ni, si, *a[6:], variant=v), 10) * 1e3
+                 for ni, si in ((1, 1), (5, 1), (5, 5))}
+            half = (t[5, 5] - t[5, 1]) / 40
+            iteration = (t[5, 1] - t[1, 1]) / 4 - 2 * half
+            fit[v] = dict(us_per_sor_half_step=half, us_per_smoothness_and_coefficients=iteration,
+                          us_fixed=t[1, 1] - iteration - 2 * half)
+        emit("refine_inner phase costs", case=name, hw=list(a[0].shape), per_variant=fit)
+
     rows["refine_inner"] = dict(
         source="refine_inner.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:144",
         per="op2 gray", max_abs_err=ri_err, ms=ri_ms, plain_ms=ri_plain, bound_ms=ri_bound,
-        bound_by=ri_bound_by)
+        bound_by=ri_bound_by, level_ms=ri_level_ms)
 
     # ---- kernels sor_scalar and sor_coupled: kernel vs plain version ----
     def sor_system(h, w, seed):
@@ -600,15 +658,16 @@ def main() -> int:
              launches=counts[rows[k]["per"]][k] if rows[k]["per"] else 0,
              max_abs_err=rows[k]["max_abs_err"], ms=rows[k]["ms"],
              plain_ms=rows[k]["plain_ms"], bound_ms=rows[k]["bound_ms"],
-             bound_by=rows[k]["bound_by"], library_ms=None)
+             bound_by=rows[k]["bound_by"], library_ms=None,
+             **({"level_ms": rows[k]["level_ms"]} if "level_ms" in rows[k] else {}))
         for k in KERNELS
     ]
     emit("kernels", note="launches, ms, plain_ms and bound_ms are per pair of the path "
-         "named in `per` (the sum over its launches); sor_coupled is on no path and its "
-         "times sum one launch at each op2 level shape",
+         "named in `per` (the sum over its launches; level_ms splits ms by pyramid level); "
+         "sor_coupled is on no path and its times sum one launch at each op2 level shape",
          per={k: rows[k]["per"] for k in KERNELS}, launches_per_path=counts,
          pair_ms_median=latency, checks={k: "ok" for k in KERNELS},
-         total_seconds=time.perf_counter() - t_start)
+         total_seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

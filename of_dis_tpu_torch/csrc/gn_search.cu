@@ -24,11 +24,22 @@
 // level 0 each of 51,300 patches runs up to 129 trips over 144 pixels,
 // ~3e10 FP32 operations (~0.5 ms at 67 TFLOP/s) against ~0.2 GB of
 // device-memory traffic (templates 89 MB, windows read once, pweight
-// 30 MB; < 0.1 ms at 3.35 TB/s).  The design: one block per patch (psz^2
-// threads rounded up to whole warps, 160 at psz 12), the window in shared
-// memory (26 x 26 x C floats, <= 8.1 KB), templates and residuals in
-// registers, fixed-order warp-shuffle reductions, so blocks are small and
-// many fit on each SM to hide the reductions' latency.
+// 30 MB; < 0.1 ms at 3.35 TB/s).  In practice a trip is a chain of
+// dependent patch reductions, so what limits it is their latency and the
+// shuffle rate.  The design: one warp per patch (gn_machine.cuh's
+// WarpLayout: lane l holds pixels l + 32 q), so a reduction is warp
+// shuffles only, with no block barrier and no shared-memory step, and a
+// slow patch holds nothing but its own warp.  WARPS warps share a block,
+// each with its own window in shared memory (26 rows of 44 floats per
+// channel at psz 12, a row stride that keeps the bilinear taps on 32
+// distinct banks; a trip whose taps all lie in the window skips the
+// per-tap bounds checks).  The grid holds as many blocks as fit on the card
+// at once, and each warp takes patches warp_id, warp_id + total warps, ...
+// until none is left.  Templates and residuals stay in registers.  A trip
+// is then bound by the SM's instruction issue (several hundred
+// instructions a warp-trip at psz 12: taps, two reductions, five IEEE
+// divisions), not by resident warps: launch bounds that force more warps
+// per SM did not make it faster.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,79 +64,130 @@ struct GNSearchParams {
   gnm::GNConsts k;
 };
 
+constexpr int WARPS = 4;  // patches (warps) per block
+
+template <int PSZ, int C>
+__host__ __device__ constexpr int window_floats() {
+  return C * (2 * PSZ + 2) * gnm::WarpLayout<PSZ>::RS;
+}
+
 template <int PSZ, int C, int NOP>
-__global__ void __launch_bounds__(((PSZ * PSZ + 31) / 32) * 32)
+__global__ void __launch_bounds__(32 * WARPS)
 gn_search_kernel(const GNSearchParams P) {
+  using L = gnm::WarpLayout<PSZ>;
+  constexpr int NP = L::NP;
   constexpr int NPIX = PSZ * PSZ;
-  constexpr int NT = ((NPIX + 31) / 32) * 32;
-  constexpr int NW = NT / 32;
-  constexpr int S = 2 * PSZ + 2;
-  __shared__ float win[C][S][S];
-  __shared__ float red[3 * NW];
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5;
+  float* win = smem + warp * window_floats<PSZ, C>();
+  const L lay{int(threadIdx.x & 31)};
 
-  const int n = blockIdx.x;
-  const int t = threadIdx.x;
-  const bool has_px = t < NPIX;
-  const size_t base = (size_t(n) * NPIX + t) * C;  // this thread's pixel, channel 0
-
-  float T[C], DX[C], DY[C];
+  for (int n = blockIdx.x * WARPS + warp; n < P.k.n; n += gridDim.x * WARPS) {
+    float T[NP][C], DX[NP][C], DY[NP][C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    T[c] = has_px ? P.tmp[base + c] : 0.f;
-    DX[c] = has_px ? P.dx[base + c] : 0.f;
-    DY[c] = has_px ? P.dy[base + c] : 0.f;
-  }
-  float h00, h01 = 0.f, h11 = 0.f, det = 0.f;
-  if (NOP == 2) {
-    h00 = P.hes[3 * n];
-    h01 = P.hes[3 * n + 1];
-    h11 = P.hes[3 * n + 2];
-    det = h00 * h11 - h01 * h01;
-  } else {
-    h00 = P.hes[n];
-  }
-  float tn = 0.f;
-  if (P.k.cost == 10) {
-    float v[1] = {0.f};
+    for (int q = 0; q < NP; ++q) {
+      const int t = lay.pixel(q);
+      const bool has_px = t < NPIX;
+      const size_t base = (size_t(n) * NPIX + t) * C;  // pixel t, channel 0
 #pragma unroll
-    for (int c = 0; c < C; ++c) v[0] += T[c] * T[c];
-    gnm::block_sum<NW, 1>(v, red);
-    tn = sqrtf(v[0]);
-  }
-
-  const float prx = P.ptref[2 * n], pry = P.ptref[2 * n + 1];
-  const float pin0 = P.pinit[NOP * n];
-  const float pin1 = NOP == 2 ? P.pinit[NOP * n + 1] : 0.f;
-  const gnm::GNOut<C> r = gnm::gn_machine<PSZ, C, NOP>(
-      P.k, P.imb, T, DX, DY, h00, h01, h11, det, tn, prx, pry, pin0, pin1, win, red);
-
-  if (has_px) {
+      for (int c = 0; c < C; ++c) {
+        T[q][c] = has_px ? P.tmp[base + c] : 0.f;
+        DX[q][c] = has_px ? P.dx[base + c] : 0.f;
+        DY[q][c] = has_px ? P.dy[base + c] : 0.f;
+      }
+    }
+    float h00, h01 = 0.f, h11 = 0.f, det = 0.f;
+    if (NOP == 2) {
+      h00 = P.hes[3 * n];
+      h01 = P.hes[3 * n + 1];
+      h11 = P.hes[3 * n + 2];
+      det = h00 * h11 - h01 * h01;
+    } else {
+      h00 = P.hes[n];
+    }
+    float tn = 0.f;
+    if (P.k.cost == 10) {
+      float v[1][NP], s[1];
 #pragma unroll
-    for (int c = 0; c < C; ++c) P.pw_out[base + c] = r.pweight[c];
-  }
-  if (t == 0) {
-    P.p_out[NOP * n] = r.p0;
-    if (NOP == 2) P.p_out[NOP * n + 1] = r.p1;
-    P.pt_out[2 * n] = r.ptx;
-    P.pt_out[2 * n + 1] = r.pty;
-    P.conv_out[n] = r.conv ? 1 : 0;
-    P.iters_out[n] = r.cnt;
+      for (int q = 0; q < NP; ++q) {
+        v[0][q] = 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[0][q] += T[q][c] * T[q][c];
+      }
+      lay.template sum<1>(v, s);
+      tn = sqrtf(s[0]);
+    }
+
+    const float prx = P.ptref[2 * n], pry = P.ptref[2 * n + 1];
+    const float pin0 = P.pinit[NOP * n];
+    const float pin1 = NOP == 2 ? P.pinit[NOP * n + 1] : 0.f;
+    const gnm::GNOut<NP, C> r = gnm::gn_machine<L, C, NOP>(
+        lay, P.k, P.imb, T, DX, DY, h00, h01, h11, det, tn, prx, pry, pin0, pin1, win);
+
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int t = lay.pixel(q);
+      if (t < NPIX) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) P.pw_out[(size_t(n) * NPIX + t) * C + c] = r.pweight[q][c];
+      }
+    }
+    if (lay.lane == 0) {
+      P.p_out[NOP * n] = r.p0;
+      if (NOP == 2) P.p_out[NOP * n + 1] = r.p1;
+      P.pt_out[2 * n] = r.ptx;
+      P.pt_out[2 * n + 1] = r.pty;
+      P.conv_out[n] = r.conv ? 1 : 0;
+      P.iters_out[n] = r.cnt;
+    }
+    __syncwarp();  // every lane is done with the window before the next patch loads it
   }
 }
 
+// How many blocks of the kernel fit on one SM, and the SMs of the device.
 template <int PSZ, int C, int NOP>
-cudaError_t launch(const GNSearchParams& P, cudaStream_t stream) {
-  constexpr int NT = ((PSZ * PSZ + 31) / 32) * 32;
-  gn_search_kernel<PSZ, C, NOP><<<P.k.n, NT, 0, stream>>>(P);
-  return cudaGetLastError();
-}
+struct Occupancy {
+  static constexpr size_t SMEM = WARPS * window_floats<PSZ, C>() * sizeof(float);
+  static cudaError_t run(int* blocks_per_sm, int* sms) {
+    cudaError_t e = cudaFuncSetAttribute(gn_search_kernel<PSZ, C, NOP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+    int dev = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, gn_search_kernel<PSZ, C, NOP>, 32 * WARPS, SMEM);
+    return e;
+  }
+};
 
-template <int PSZ>
-cudaError_t dispatch_c_nop(const GNSearchParams& P, int c, int nop, cudaStream_t s) {
-  if (c == 1 && nop == 2) return launch<PSZ, 1, 2>(P, s);
-  if (c == 3 && nop == 2) return launch<PSZ, 3, 2>(P, s);
-  if (c == 1 && nop == 1) return launch<PSZ, 1, 1>(P, s);
-  if (c == 3 && nop == 1) return launch<PSZ, 3, 1>(P, s);
+// One launch: as many blocks as fit on the card at once, and no more than
+// the patches need.
+template <int PSZ, int C, int NOP>
+struct Launch {
+  static cudaError_t run(const GNSearchParams* P, cudaStream_t stream) {
+    int per_sm = 0, sms = 0;
+    cudaError_t e = Occupancy<PSZ, C, NOP>::run(&per_sm, &sms);
+    if (e != cudaSuccess) return e;
+    const int grid = min((P->k.n + WARPS - 1) / WARPS, per_sm * sms);
+    if (grid < 1) return cudaErrorInvalidConfiguration;
+    gn_search_kernel<PSZ, C, NOP>
+        <<<grid, 32 * WARPS, Occupancy<PSZ, C, NOP>::SMEM, stream>>>(*P);
+    return cudaGetLastError();
+  }
+};
+
+// F<psz, c, nop>::run(a...) for the runtime (psz, c, nop).
+template <template <int, int, int> class F, class... A>
+cudaError_t dispatch(int psz, int c, int nop, A... a) {
+  if (psz == 8 && c == 1 && nop == 2) return F<8, 1, 2>::run(a...);
+  if (psz == 8 && c == 3 && nop == 2) return F<8, 3, 2>::run(a...);
+  if (psz == 8 && c == 1 && nop == 1) return F<8, 1, 1>::run(a...);
+  if (psz == 8 && c == 3 && nop == 1) return F<8, 3, 1>::run(a...);
+  if (psz == 12 && c == 1 && nop == 2) return F<12, 1, 2>::run(a...);
+  if (psz == 12 && c == 3 && nop == 2) return F<12, 3, 2>::run(a...);
+  if (psz == 12 && c == 1 && nop == 1) return F<12, 1, 1>::run(a...);
+  if (psz == 12 && c == 3 && nop == 1) return F<12, 3, 1>::run(a...);
   return cudaErrorInvalidValue;
 }
 
@@ -142,15 +204,19 @@ extern "C" int gn_search_launch(
     int stereo_clamp, float normoutlier, float dp_thresh_sq, float dr_thresh,
     float res_thresh, float outlier_sq, float minerrval, void* stream) {
   if (n <= 0 || sy > 2 * psz + 2 || sx > 2 * psz + 2) return int(cudaErrorInvalidValue);
-  GNSearchParams P{tmp, dx, dy, hes, imb, ptref, pinit, p_out, pt_out, pw_out, conv_out,
-                   iters_out,
-                   {n, hp, wp, pad, w, h, sy, sx, max_iter, min_iter, cost, patch_norm,
-                    stereo_clamp, normoutlier, dp_thresh_sq, dr_thresh, res_thresh,
-                    outlier_sq, minerrval}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (psz == 8) e = dispatch_c_nop<8>(P, c, nop, s);
-  else if (psz == 12) e = dispatch_c_nop<12>(P, c, nop, s);
-  else e = cudaErrorInvalidValue;
-  return int(e);
+  const GNSearchParams P{tmp, dx, dy, hes, imb, ptref, pinit, p_out, pt_out, pw_out, conv_out,
+                         iters_out,
+                         {n, hp, wp, pad, w, h, sy, sx, max_iter, min_iter, cost, patch_norm,
+                          stereo_clamp, normoutlier, dp_thresh_sq, dr_thresh, res_thresh,
+                          outlier_sq, minerrval}};
+  return int(dispatch<Launch>(psz, c, nop, &P, static_cast<cudaStream_t>(stream)));
+}
+
+// Blocks of the kernel for (psz, c, nop) that fit on one SM at once, and
+// the warps (patches) per block; returns the cudaError_t (0 on success).
+extern "C" int gn_search_occupancy(int psz, int c, int nop, int* blocks_per_sm,
+                                   int* warps_per_block) {
+  int sms = 0;
+  *warps_per_block = WARPS;
+  return int(dispatch<Occupancy>(psz, c, nop, blocks_per_sm, &sms));
 }

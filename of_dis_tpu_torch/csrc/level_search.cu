@@ -17,8 +17,9 @@
 // does ~1e7 FP32 operations, far below a microsecond of bandwidth or
 // arithmetic; each GN trip is a chain of dependent block reductions.  The
 // design keeps everything a patch touches on chip for the whole search:
-// one block per patch (psz^2 threads, one patch pixel per thread, rounded
-// up to whole warps), the search window in shared memory (loaded once,
+// one block per patch (gn_machine.cuh's BlockLayout: psz^2 threads, one
+// patch pixel per thread, rounded up to whole warps; gn_search.cu runs the
+// same machine a warp per patch), the search window in shared memory (loaded once,
 // coalesced along the image rows), templates and residuals in registers,
 // and every reduction a warp-shuffle tree plus one shared-memory step in a
 // fixed order, so results are bit-reproducible.  The TPU kernel's one-hot
@@ -31,8 +32,6 @@
 #include "gn_machine.cuh"
 
 namespace {
-
-using gnm::block_sum;
 
 struct LevelParams {
   const float* ima;    // (Hp, Wp, C) padded reference image
@@ -50,15 +49,15 @@ struct LevelParams {
 };
 
 template <int PSZ, int C, int NOP>
-__global__ void __launch_bounds__(((PSZ * PSZ + 31) / 32) * 32)
+__global__ void __launch_bounds__(gnm::BlockLayout<PSZ>::THREADS)
 level_search_kernel(const LevelParams P) {
+  using L = gnm::BlockLayout<PSZ>;
   constexpr int NPIX = PSZ * PSZ;
-  constexpr int NT = ((NPIX + 31) / 32) * 32;
-  constexpr int NW = NT / 32;
   constexpr int S = 2 * PSZ + 2;
   constexpr int LB = -(PSZ / 2);
   __shared__ float win[C][S][S];
-  __shared__ float red[3 * NW];
+  __shared__ float red[3 * L::NW];
+  const L lay{red};
 
   const int n = blockIdx.x;
   const int t = threadIdx.x;
@@ -74,37 +73,37 @@ level_search_kernel(const LevelParams P) {
   int cx = int(floorf(prx + 0.5f)) + P.k.pad + LB;
   cy = min(max(cy, 0), P.k.hp - PSZ);
   cx = min(max(cx, 0), wp - PSZ);
-  float T[C], DX[C], DY[C];
+  float T[1][C], DX[1][C], DY[1][C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int idx = ((cy + j) * wp + cx + i) * C + c;
-    T[c] = has_px ? P.ima[idx] : 0.f;
-    DX[c] = has_px ? P.dxa[idx] : 0.f;
-    DY[c] = has_px ? P.dya[idx] : 0.f;
+    T[0][c] = has_px ? P.ima[idx] : 0.f;
+    DX[0][c] = has_px ? P.dxa[idx] : 0.f;
+    DY[0][c] = has_px ? P.dya[idx] : 0.f;
   }
   if (P.k.patch_norm) {  // patch.cpp:330-331
-    float v[1] = {0.f};
+    float v[1][1] = {{0.f}}, s[1];
 #pragma unroll
-    for (int c = 0; c < C; ++c) v[0] += T[c];
-    block_sum<NW, 1>(v, red);
-    const float mean = v[0] / novals;
+    for (int c = 0; c < C; ++c) v[0][0] += T[0][c];
+    lay.template sum<1>(v, s);
+    const float mean = s[0] / novals;
 #pragma unroll
-    for (int c = 0; c < C; ++c) T[c] = has_px ? T[c] - mean : 0.f;
+    for (int c = 0; c < C; ++c) T[0][c] = has_px ? T[0][c] - mean : 0.f;
   }
   float h00, h01 = 0.f, h11 = 0.f, det = 0.f;
   {
-    float v[3] = {0.f, 0.f, 0.f};
+    float v[3][1] = {{0.f}, {0.f}, {0.f}}, s[3];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      v[0] += DX[c] * DX[c];
-      v[1] += DX[c] * DY[c];
-      v[2] += DY[c] * DY[c];
+      v[0][0] += DX[0][c] * DX[0][c];
+      v[1][0] += DX[0][c] * DY[0][c];
+      v[2][0] += DY[0][c] * DY[0][c];
     }
-    block_sum<NW, 3>(v, red);
-    h00 = v[0];
+    lay.template sum<3>(v, s);
+    h00 = s[0];
     if (NOP == 2) {
-      h01 = v[1];
-      h11 = v[2];
+      h01 = s[1];
+      h11 = s[2];
       const float bump = (h00 * h11 - h01 * h01 == 0.f) ? 1e-10f : 0.f;  // patch.cpp:78-82
       h00 += bump;
       h11 += bump;
@@ -115,23 +114,23 @@ level_search_kernel(const LevelParams P) {
   }
   float tn = 0.f;
   if (P.k.cost == 10) {
-    float v[1] = {0.f};
+    float v[1][1] = {{0.f}}, s[1];
 #pragma unroll
-    for (int c = 0; c < C; ++c) v[0] += T[c] * T[c];
-    block_sum<NW, 1>(v, red);
-    tn = sqrtf(v[0]);
+    for (int c = 0; c < C; ++c) v[0][0] += T[0][c] * T[0][c];
+    lay.template sum<1>(v, s);
+    tn = sqrtf(s[0]);
   }
 
   const float pin0 = P.pinit[NOP * n];
   const float pin1 = NOP == 2 ? P.pinit[NOP * n + 1] : 0.f;
-  const gnm::GNOut<C> r = gnm::gn_machine<PSZ, C, NOP>(
-      P.k, P.imb, T, DX, DY, h00, h01, h11, det, tn, prx, pry, pin0, pin1, win, red);
+  const gnm::GNOut<1, C> r = gnm::gn_machine<L, C, NOP>(
+      lay, P.k, P.imb, T, DX, DY, h00, h01, h11, det, tn, prx, pry, pin0, pin1, &win[0][0][0]);
 
   // ---- outputs; densification weights (patchgrid.cpp:253-260) ----
   if (has_px) {
     float s = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c) s += fmaxf(P.k.minerrval, r.pweight[c]);
+    for (int c = 0; c < C; ++c) s += fmaxf(P.k.minerrval, r.pweight[0][c]);
     P.absw_out[n * NPIX + t] = 1.f / s;
   }
   if (t == 0) {
@@ -146,8 +145,7 @@ level_search_kernel(const LevelParams P) {
 
 template <int PSZ, int C, int NOP>
 cudaError_t launch(const LevelParams& P, cudaStream_t stream) {
-  constexpr int NT = ((PSZ * PSZ + 31) / 32) * 32;
-  level_search_kernel<PSZ, C, NOP><<<P.k.n, NT, 0, stream>>>(P);
+  level_search_kernel<PSZ, C, NOP><<<P.k.n, gnm::BlockLayout<PSZ>::THREADS, 0, stream>>>(P);
   return cudaGetLastError();
 }
 

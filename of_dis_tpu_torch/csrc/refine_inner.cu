@@ -1,5 +1,5 @@
 // refine_inner.cu — the whole TV inner loop of one refinement level
-// (RefLevelOF, refine_variational.cpp:192-218) in one cooperative launch.
+// (RefLevelOF, refine_variational.cpp:192-218) in one launch.
 //
 // Replaces of_dis_tpu/ops/pallas_kernels.py::_refine_inner_kernel
 // (launched there by refine_inner_pallas).  n_inner times:
@@ -18,15 +18,26 @@
 // What bounds it on an H100: latency.  At op2's finest level (56x128) a
 // launch moves ~0.4 MB and does ~1e7 FP32 operations — well under a
 // microsecond of either — while every SOR half-step reads neighbours that
-// the step before wrote, so the level needs a barrier across the whole grid
+// the step before wrote, so the level needs a barrier over all its pixels
 // between phases (2 + 2 * solver_it per inner iteration).  The design: one
-// cooperative kernel (cudaLaunchCooperativeKernel) whose grid is no larger
-// than the occupancy calculator allows on the card, grid-stride loops over
-// pixels, cooperative_groups grid.sync() between phases, and the per-pixel
-// system (wh, wv, a12, b1, b2, omega/A11, omega/A22) and du, dv held in
-// scratch fields the wrapper allocates.  At large levels (448x1024, op4's
-// finest) the same kernel strides over more pixels per thread; its fields
-// then stay in the 50 MB L2.  No atomics: bit-reproducible.
+// kernel body, templated on that barrier, with the per-pixel system (wh,
+// wv, a12, b1, b2, omega/A11, omega/A22) and du, dv in scratch fields the
+// wrapper allocates (L2 holds them), and three ways to launch it:
+//   block    one CTA of up to 1024 threads, __syncthreads(), the scratch
+//            fields in its shared memory; small levels.
+//   cluster  2-16 CTAs of one thread-block cluster (cudaLaunchKernelEx),
+//            cluster.sync(), whose release / acquire orders the CTAs'
+//            writes to the fields before the other CTAs' reads; mid-size
+//            levels.
+//   grid     one cooperative launch (cudaLaunchCooperativeKernel) of as
+//            many 256-thread blocks as fit on the card, grid.sync(); large
+//            levels (448x1024, op4's finest), whose fields stay in the
+//            50 MB L2.
+// Every variant strides over the pixels with all its threads.  Red-black
+// SOR reads only the other colour's values of the step before, so the
+// three give the same bits on the same inputs.  No atomics:
+// bit-reproducible.  ops/kernels.py::refine_variant picks the variant from
+// the level's shape.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -43,7 +54,8 @@ constexpr float DATANORM = float(0.1 * 0.1);
 constexpr float EPS_COLOR = float(0.001 * 0.001);
 constexpr float EPS_GRAD = float(0.001 * 0.001);
 constexpr float EPS_SMOOTH = float(0.001 * 0.001);
-constexpr int THREADS = 256;
+constexpr int GRID_THREADS = 256;
+constexpr int CLUSTER_THREADS = 1024;
 
 struct RefineParams {
   const float *wx, *wy, *mask;                              // (h, w)
@@ -53,7 +65,9 @@ struct RefineParams {
   float *s, *wh, *wv, *a12, *b1, *b2, *inv11, *inv22, *du, *dv;
   int h, w, n_inner, solver_it;
   float omega, qa, hd3, hg3;
+  unsigned long long w_inv;  // ceil(2^64 / w) (w > 1): row of pixel k = umulhi(k, w_inv)
 };
+constexpr int SCRATCH_FIELDS = 10;
 
 // TV diffusivity at pixel (y, x) of u = wx + du, v = wy + dv (replicate borders).
 __device__ __forceinline__ float smoothness(const RefineParams& P, int y, int x, bool zero_d) {
@@ -184,10 +198,40 @@ __device__ __forceinline__ void coefficients(const RefineParams& P, int y, int x
   }
 }
 
-template <int C>
-__global__ void __launch_bounds__(THREADS) refine_inner_kernel(const RefineParams P) {
-  cg::grid_group grid = cg::this_grid();
+// The barrier between phases, the largest block each variant launches, and
+// whether the scratch fields live in the block's shared memory.
+struct BlockSync {
+  static constexpr int MAX_THREADS = 1024;
+  static constexpr bool SHARED_FIELDS = true;
+  __device__ static void sync() { __syncthreads(); }
+};
+struct ClusterSync {
+  static constexpr int MAX_THREADS = CLUSTER_THREADS;
+  static constexpr bool SHARED_FIELDS = false;
+  __device__ static void sync() { cg::this_cluster().sync(); }
+};
+struct GridSync {
+  static constexpr int MAX_THREADS = GRID_THREADS;
+  static constexpr bool SHARED_FIELDS = false;
+  __device__ static void sync() { cg::this_grid().sync(); }
+};
+
+// Row of pixel k: a multiply-high by the reciprocal the host computed,
+// exact for every k < 2^32 (an integer division by a runtime w costs ~20
+// instructions, and the loops below need one per pixel and phase).
+__device__ __forceinline__ int row_of(const RefineParams& P, int k) {
+  return P.w == 1 ? k : int(__umul64hi((unsigned long long)k, P.w_inv));
+}
+
+// n_inner iterations over the level, every thread of the launch striding
+// over the pixels (smoothness, coefficients) or over the pixel pairs
+// (2j, 2j + 1) (SOR half-steps).  A pair's two pixels have different
+// colours, also where it wraps to the next row (w odd), so a half-step
+// gives each thread one pixel of its colour and no lane idles on the other.
+template <int C, class Sync>
+__device__ __forceinline__ void inner_loop(const RefineParams& P) {
   const int npx = P.h * P.w;
+  const int npairs = (npx + 1) / 2;
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const float omega = P.omega;
@@ -195,19 +239,27 @@ __global__ void __launch_bounds__(THREADS) refine_inner_kernel(const RefineParam
   for (int it = 0; it < P.n_inner; ++it) {
     const bool zero_d = it == 0;
     for (int k = first; k < npx; k += stride) {
-      P.s[k] = smoothness(P, k / P.w, k % P.w, zero_d);
+      const int y = row_of(P, k);
+      P.s[k] = smoothness(P, y, k - y * P.w, zero_d);
     }
-    grid.sync();
+    Sync::sync();
     for (int k = first; k < npx; k += stride) {
-      coefficients<C>(P, k / P.w, k % P.w, zero_d);
+      const int y = row_of(P, k);
+      coefficients<C>(P, y, k - y * P.w, zero_d);
     }
-    grid.sync();
+    Sync::sync();
     for (int sweep = 0; sweep < P.solver_it; ++sweep) {
       for (int color = 0; color < 2; ++color) {
         const bool last = it == P.n_inner - 1 && sweep == P.solver_it - 1 && color == 1;
-        for (int k = first; k < npx; k += stride) {
-          const int y = k / P.w, x = k % P.w;
-          if (((x + y) & 1) == color) {
+        for (int j = first; j < npairs; j += stride) {
+          const int k0 = 2 * j;
+          const int y0 = row_of(P, k0), x0 = k0 - y0 * P.w;
+          const bool second = ((x0 + y0) & 1) != color;  // this colour's pixel is k0 + 1
+          const int k = k0 + second;
+          if (k < npx) {
+            const bool wraps = second && x0 == P.w - 1;
+            const int y = wraps ? y0 + 1 : y0;
+            const int x = wraps ? 0 : x0 + second;
             float du_n, dv_n;
             sor::coupled_update(P.wh, P.wv, P.du, P.dv, P.b1[k], P.b2[k], P.a12[k], P.inv11[k],
                                 P.inv22[k], omega, y, x, k, P.h, P.w, du_n, dv_n);
@@ -217,55 +269,138 @@ __global__ void __launch_bounds__(THREADS) refine_inner_kernel(const RefineParam
               P.uu[k] = P.wx[k] + du_n;
               P.vv[k] = P.wy[k] + dv_n;
             }
-          } else if (last) {  // red pixels are final after the red half-step
-            P.uu[k] = P.wx[k] + P.du[k];
-            P.vv[k] = P.wy[k] + P.dv[k];
+          }
+          const int kr = k == k0 ? k0 + 1 : k0;  // the red pixel, final after the red half-step
+          if (last && kr < npx) {
+            P.uu[kr] = P.wx[kr] + P.du[kr];
+            P.vv[kr] = P.wy[kr] + P.dv[kr];
           }
         }
-        if (!last) grid.sync();
+        if (!last) Sync::sync();
       }
     }
   }
 }
 
+template <int C, class Sync>
+__global__ void __launch_bounds__(Sync::MAX_THREADS) refine_inner_kernel(const RefineParams P) {
+  if constexpr (Sync::SHARED_FIELDS) {
+    extern __shared__ float sm[];
+    const int f = P.h * P.w;
+    RefineParams Q = P;
+    Q.s = sm;
+    Q.wh = sm + f;
+    Q.wv = sm + 2 * f;
+    Q.a12 = sm + 3 * f;
+    Q.b1 = sm + 4 * f;
+    Q.b2 = sm + 5 * f;
+    Q.inv11 = sm + 6 * f;
+    Q.inv22 = sm + 7 * f;
+    Q.du = sm + 8 * f;
+    Q.dv = sm + 9 * f;
+    inner_loop<C, Sync>(Q);
+  } else {
+    inner_loop<C, Sync>(P);
+  }
+}
+
+int threads_for(int px) { return min(1024, max(32, (px + 31) / 32 * 32)); }
+
+// One CTA with its ten scratch fields in shared memory; a level whose fields
+// do not fit (> 5811 px in the 227 KB a block may use on an H100) is refused.
 template <int C>
-cudaError_t launch(const RefineParams& P, cudaStream_t stream) {
+cudaError_t launch_block(const RefineParams& P, cudaStream_t stream) {
+  auto kernel = refine_inner_kernel<C, BlockSync>;
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const size_t smem = size_t(SCRATCH_FIELDS) * P.h * P.w * sizeof(float);
+  if (smem > size_t(max_smem)) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<1, threads_for(P.h * P.w), smem, stream>>>(P);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_cluster(const RefineParams& P, int n_ctas, cudaStream_t stream) {
+  if (n_ctas < 2 || n_ctas > 16) return cudaErrorInvalidValue;
+  auto kernel = refine_inner_kernel<C, ClusterSync>;
+  cudaError_t e = cudaSuccess;
+  if (n_ctas > 8)  // above the portable cluster size
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_ctas);
+  cfg.blockDim = dim3(min(CLUSTER_THREADS, threads_for((P.h * P.w + n_ctas - 1) / n_ctas)));
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, P);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_grid(const RefineParams& P, cudaStream_t stream) {
+  auto kernel = refine_inner_kernel<C, GridSync>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, refine_inner_kernel<C>, THREADS, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GRID_THREADS, 0);
   if (e != cudaSuccess) return e;
-  const int need = (P.h * P.w + THREADS - 1) / THREADS;
+  const int need = (P.h * P.w + GRID_THREADS - 1) / GRID_THREADS;
   const int grid = min(need, per_sm * sms);
   if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
   RefineParams args = P;
   void* kargs[] = {&args};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(refine_inner_kernel<C>),
-                                  dim3(grid), dim3(THREADS), kargs, 0, stream);
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                  dim3(GRID_THREADS), kargs, 0, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+enum Variant { BLOCK = 0, CLUSTER = 1, GRID = 2 };
+
+template <int C>
+cudaError_t launch(const RefineParams& P, int variant, int n_ctas, cudaStream_t stream) {
+  if (variant == BLOCK) return launch_block<C>(P, stream);
+  if (variant == CLUSTER) return launch_cluster<C>(P, n_ctas, stream);
+  if (variant == GRID) return launch_grid<C>(P, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  The wrapper
 // (ops/kernels.py::refine_inner) has checked shapes, types and devices;
-// scratch holds 10 (h, w) float32 fields.
+// scratch holds 10 (h, w) float32 fields.  variant: 0 block, 1 cluster of
+// n_ctas CTAs, 2 grid.
 extern "C" int refine_inner_launch(
     const float* wx, const float* wy, const float* mask,
     const float* ix, const float* iy, const float* iz, const float* ixx,
     const float* ixy, const float* iyy, const float* ixz, const float* iyz,
     float* uu, float* vv, float* scratch, int h, int w, int c, int n_inner,
-    int solver_it, float omega, float qa, float hd3, float hg3, void* stream) {
+    int solver_it, float omega, float qa, float hd3, float hg3, int variant, int n_ctas,
+    void* stream) {
   if (h < 1 || w < 1 || n_inner < 1 || solver_it < 1) return int(cudaErrorInvalidValue);
   const size_t f = size_t(h) * size_t(w);
   RefineParams P{wx, wy, mask, ix, iy, iz, ixx, ixy, iyy, ixz, iyz, uu, vv,
                  scratch, scratch + f, scratch + 2 * f, scratch + 3 * f, scratch + 4 * f,
                  scratch + 5 * f, scratch + 6 * f, scratch + 7 * f, scratch + 8 * f,
-                 scratch + 9 * f, h, w, n_inner, solver_it, omega, qa, hd3, hg3};
+                 scratch + 9 * f, h, w, n_inner, solver_it, omega, qa, hd3, hg3,
+                 w > 1 ? ~0ULL / (unsigned long long)w + 1 : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c == 1) return int(launch<1>(P, s));
-  if (c == 3) return int(launch<3>(P, s));
+  if (c == 1) return int(launch<1>(P, variant, n_ctas, s));
+  if (c == 3) return int(launch<3>(P, variant, n_ctas, s));
   return int(cudaErrorInvalidValue);
 }

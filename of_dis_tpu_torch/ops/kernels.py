@@ -20,14 +20,17 @@ there when it is called.
   sor_scalar     csrc/sor_rb.cu         replaces of_dis_tpu/ops/pallas_kernels.py::_sor_scalar_kernel
   sor_coupled    csrc/sor_rb.cu         replaces of_dis_tpu/ops/pallas_kernels.py::_sor_coupled_kernel
 
-level_search and gn_search share the GN state machine (csrc/gn_machine.cuh);
-`search_route` picks one of them per level.
+level_search and gn_search share the GN state machine (csrc/gn_machine.cuh),
+a block per patch in level_search and a warp per patch in gn_search;
+`search_route` picks one of them per level.  refine_inner launches one
+kernel body with the barrier the level needs: `refine_variant` picks a single
+CTA, a thread-block cluster or a cooperative grid from the level's shape.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -235,11 +238,63 @@ def gn_search(imb, tmpl, pt_ref, p_init, cfg: DISConfig, w: int, h: int, pad: in
     return SearchResult(p=p, pt=pt, pweight=pweight, converged=conv.bool(), iters=iters)
 
 
+def gn_search_occupancy(psz: int, c: int, nop: int) -> Tuple[int, int]:
+    """(blocks per SM, warps per block) of gn_search's kernel for (psz, C,
+    nop) on the current CUDA device; each warp searches one patch."""
+    fn = build.load("gn_search").gn_search_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+    blocks, warps = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(fn(psz, c, nop, ctypes.byref(blocks), ctypes.byref(warps)), "gn_search_occupancy")
+    return blocks.value, warps.value
+
+
 # ---------------------------------------------------------------------------
 # Kernel B: TV refinement inner loop
 # ---------------------------------------------------------------------------
 
 _REFINE_SCRATCH_FIELDS = 10
+REFINE_VARIANTS = ("block", "cluster", "grid")  # codes 0, 1, 2 of refine_inner_launch
+# Where refine_variant moves to the next variant, in pixels per level (h * w):
+# one pixel per thread of one 1024-thread CTA, and of a 16-CTA cluster.
+# On an H100 the block variant won at op2's 14x32 and lost to the cluster at
+# 28x64, and the cluster won at 56x128 and lost to the grid at 112x256
+# (PERF.md).
+_REFINE_BLOCK_MAX_PX = 1024
+_REFINE_CLUSTER_MAX_PX = 16 * 1024
+_REFINE_CTA_PX = 256  # pixels per CTA of the cluster variant (one per thread)
+_REFINE_MAX_CTAS = 16  # the largest cluster on an H100 (non-portable above 8)
+# The block variant keeps its scratch fields in shared memory: the largest
+# level whose fields fit in the 232,448 bytes an H100 block may use.
+_REFINE_BLOCK_CAPACITY_PX = 232448 // (4 * _REFINE_SCRATCH_FIELDS)
+
+
+def refine_variants(h: int, w: int) -> Tuple[str, ...]:
+    """The launch variants that can take an (h, w) level."""
+    if h * w <= _REFINE_BLOCK_CAPACITY_PX:
+        return REFINE_VARIANTS
+    return tuple(v for v in REFINE_VARIANTS if v != "block")
+
+
+def refine_cluster_ctas(h: int, w: int) -> int:
+    """CTAs of the cluster variant for an (h, w) level: 256 pixels each,
+    one per thread, 2 to 16 of them (larger levels stride)."""
+    return min(_REFINE_MAX_CTAS, max(2, -(-(h * w) // _REFINE_CTA_PX)))
+
+
+def refine_variant(h: int, w: int, c: int) -> Tuple[str, int]:
+    """How refine_inner launches for an (h, w, C) level: ("block", 1) one
+    CTA, ("cluster", n) one cluster of n CTAs, or ("grid", 0) a cooperative
+    grid.  Each is the barrier the level needs between phases and no
+    wider; the thresholds come from timing every variant on an H100 at
+    op2's and op4's level shapes (PERF.md).  C does not move them."""
+    px = h * w
+    if px <= _REFINE_BLOCK_MAX_PX:
+        return ("block", 1)
+    if px <= _REFINE_CLUSTER_MAX_PX:
+        return ("cluster", refine_cluster_ctas(h, w))
+    return ("grid", 0)
 
 
 def _refine_inner_lib():
@@ -247,16 +302,22 @@ def _refine_inner_lib():
     fn = lib.refine_inner_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def refine_inner(wx, wy, mask, derivs, n_inner: int, solver_it: int,
-                 omega: float, qa: float, hd3: float, hg3: float):
+                 omega: float, qa: float, hd3: float, hg3: float,
+                 variant: Optional[str] = None):
     """The whole TV inner loop of one level.  wx, wy, mask (h, w); derivs
     the 8-tuple (ix, iy, iz, ixx, ixy, iyy, ixz, iyz) of (h, w, C).
-    Returns (uu, vv), each (h, w)."""
+    Returns (uu, vv), each (h, w).  On the card the kernel launches as
+    refine_variant picks, or as `variant` (one of REFINE_VARIANTS) names;
+    every variant that can take the level (refine_variants) gives the same
+    bits."""
+    if variant is not None and variant not in REFINE_VARIANTS:
+        raise ValueError(f"refine_inner: unknown variant {variant!r}")
     if wx.device.type == "cpu":
         from ..models.refine import refine_inner_reference
 
@@ -274,6 +335,12 @@ def refine_inner(wx, wy, mask, derivs, n_inner: int, solver_it: int,
         _check(name, t, (h, w), dev)
     for k, t in enumerate(derivs):
         _check(f"derivs[{k}]", t, (h, w, c), dev)
+    if variant is None:
+        variant, n_ctas = refine_variant(h, w, c)
+    elif variant not in refine_variants(h, w):
+        raise ValueError(f"refine_inner: variant {variant!r} cannot take a {h}x{w} level")
+    else:
+        n_ctas = refine_cluster_ctas(h, w) if variant == "cluster" else 0
     uu = torch.empty((h, w), dtype=torch.float32, device=dev)
     vv = torch.empty_like(uu)
     scratch = torch.empty((_REFINE_SCRATCH_FIELDS, h, w), dtype=torch.float32, device=dev)
@@ -284,9 +351,9 @@ def refine_inner(wx, wy, mask, derivs, n_inner: int, solver_it: int,
             _ptr(uu), _ptr(vv), _ptr(scratch),
             h, w, c, int(n_inner), int(solver_it),
             float(omega), float(qa), float(hd3), float(hg3),
-            _stream(dev),
+            REFINE_VARIANTS.index(variant), n_ctas, _stream(dev),
         )
-    _raise_on(rc, "refine_inner")
+    _raise_on(rc, f"refine_inner ({variant})")
     launches["refine_inner"] += 1
     return uu, vv
 

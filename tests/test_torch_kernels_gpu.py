@@ -77,9 +77,18 @@ def test_level_search_kernel_matches_plain(cuda, mode, c, psz, cost):
     assert (res.converged == ref.converged).float().mean() >= 0.99
 
 
+def _assert_search_equal(res, ref):
+    """gn_search and its plain version sum and divide in one order: equal bits."""
+    for name in ("p", "pt", "pweight", "converged", "iters"):
+        a, b = getattr(res, name), getattr(ref, name)
+        assert torch.equal(a, b), (name, float((a.float() - b.float()).abs().max()))
+
+
 @pytest.mark.parametrize("mode,c,psz,cost,camlr", [
     ("flow", 1, 12, 0, 0), ("flow", 3, 12, 0, 0), ("flow", 1, 12, 10, 0), ("flow", 1, 8, 0, 0),
+    ("flow", 3, 8, 0, 0), ("flow", 1, 12, 1, 0), ("flow", 1, 12, 2, 0), ("flow", 3, 8, 10, 0),
     ("stereo", 1, 12, 0, 0), ("stereo", 3, 12, 0, 1), ("stereo", 1, 8, 0, 0),
+    ("stereo", 3, 8, 1, 0), ("stereo", 1, 12, 2, 1),
 ])
 def test_gn_search_kernel_matches_plain(cuda, mode, c, psz, cost, camlr):
     cfg = DISConfig(mode=mode, channels=c, sc_f=1, sc_l=0, max_iter=8, min_iter=8,
@@ -89,11 +98,22 @@ def test_gn_search_kernel_matches_plain(cuda, mode, c, psz, cost, camlr):
     tmpl = build_templates(ima, dxa, dya, pt_ref, cfg, pad)
     res = kernels.gn_search(imb, tmpl, pt_ref, p0, cfg, lw, lh, pad)
     ref = gn_search_reference(imb, tmpl, pt_ref, p0, cfg, lw, lh, pad)
-    torch.testing.assert_close(res.p, ref.p, rtol=0, atol=2e-3)
-    torch.testing.assert_close(res.pt, ref.pt, rtol=0, atol=2e-3)
-    aw = lambda r: 1.0 / r.pweight.clamp(min=cfg.minerrval).sum(-1)  # noqa: E731
-    torch.testing.assert_close(aw(res), aw(ref), rtol=1e-2, atol=1e-4)
-    assert (res.converged == ref.converged).float().mean() >= 0.99
+    _assert_search_equal(res, ref)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 7, 33])
+@pytest.mark.parametrize("c,psz", [(1, 12), (3, 8)])
+def test_gn_search_kernel_patch_counts(cuda, n, c, psz):
+    """N = 1 and N not a multiple of the kernel's warps (patches) per block."""
+    cfg = DISConfig(channels=c, sc_f=1, sc_l=0, max_iter=8, min_iter=2, patch_size=psz,
+                    overlap=0.4 if psz == 8 else 0.75).validate()
+    ima, dxa, dya, imb, pt_ref, p0, _, lw, lh, pad = _level_args(cfg, c, cuda)
+    assert pt_ref.shape[0] >= n
+    pt_ref, p0 = pt_ref[-n:].contiguous(), p0[-n:].contiguous()
+    tmpl = build_templates(ima, dxa, dya, pt_ref, cfg, pad)
+    res = kernels.gn_search(imb, tmpl, pt_ref, p0, cfg, lw, lh, pad)
+    ref = gn_search_reference(imb, tmpl, pt_ref, p0, cfg, lw, lh, pad)
+    _assert_search_equal(res, ref)
 
 
 def _sor_system(h, w, device, seed):
@@ -122,22 +142,50 @@ def test_sor_kernels_match_plain(cuda, h, w):
     torch.testing.assert_close(dv, rdv, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("h,w,c,n_inner", [(13, 17, 1, 3), (56, 128, 1, 4), (56, 128, 3, 4),
-                                           (448, 1024, 1, 1)])
-def test_refine_inner_kernel_matches_plain(cuda, h, w, c, n_inner):
+def _refine_args(h, w, c, n_inner, device):
     rng = np.random.RandomState(h + w + c)
 
     def field(*shape, scale=1.0):
-        return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale, device=cuda)
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32) * scale, device=device)
 
     wx, wy = field(h, w), field(h, w)
-    mask = torch.as_tensor((rng.rand(h, w) > 0.05).astype(np.float32), device=cuda)
+    mask = torch.as_tensor((rng.rand(h, w) > 0.05).astype(np.float32), device=device)
     derivs = tuple(field(h, w, c, scale=s) for s in (5, 5, 10, 2, 2, 2, 3, 3))
-    args = (wx, wy, mask, derivs, n_inner, 3, 1.6, 2.5, 5 / 6, 5 / 3)
+    return (wx, wy, mask, derivs, n_inner, 3, 1.6, 2.5, 5 / 6, 5 / 3)
+
+
+@pytest.mark.parametrize("h,w,c,n_inner", [(13, 17, 1, 3), (56, 128, 1, 4), (56, 128, 3, 4),
+                                           (448, 1024, 1, 1)])
+def test_refine_inner_kernel_matches_plain(cuda, h, w, c, n_inner):
+    args = _refine_args(h, w, c, n_inner, cuda)
     uu, vv = kernels.refine_inner(*args)
     ru, rv = refine_inner_reference(*args)
     torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-4)
+
+
+def _threshold_shapes():
+    """(h, w) just below and just above each pixel count where
+    refine_variant changes its choice, with w = 64."""
+    shapes = []
+    for px in (kernels._REFINE_BLOCK_MAX_PX, kernels._REFINE_CLUSTER_MAX_PX):
+        shapes += [(px // 64, 64), (px // 64 + 1, 64)]
+    return shapes
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("side", range(4))
+def test_refine_inner_variants_bit_equal(cuda, c, side):
+    h, w = _threshold_shapes()[side]
+    args = _refine_args(h, w, c, 2, cuda)
+    outs = {v: kernels.refine_inner(*args, variant=v) for v in kernels.refine_variants(h, w)}
+    assert len(outs) >= 2
+    picked = kernels.refine_inner(*args)
+    for v, (uu, vv) in outs.items():
+        assert torch.equal(uu, picked[0]) and torch.equal(vv, picked[1]), v
+    ru, rv = refine_inner_reference(*args)
+    torch.testing.assert_close(picked[0], ru, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(picked[1], rv, rtol=1e-4, atol=1e-4)
 
 
 def _routes(cfg, h, w):

@@ -11,7 +11,7 @@ import pytest
 from of_dis_tpu.config import operating_point
 from of_dis_tpu.models.grid import level_geometry
 from of_dis_tpu.ops.pallas_kernels import gn_route
-from of_dis_tpu_torch.ops.kernels import search_route
+from of_dis_tpu_torch.ops.kernels import refine_variant, refine_variants, search_route
 
 CONFIGS = [(1, "flow"), (2, "flow"), (3, "flow"), (4, "flow"), (2, "stereo")]
 
@@ -44,3 +44,23 @@ def test_search_route_sends_small_windows_to_level():
     """JAX's "xla" route (a window no larger than psz) stays on "level"."""
     assert gn_route(12, 200, 1, 40, 12, 12, 26) == "xla"
     assert search_route(12, 200, 1, 40, 12, 12, 26) == "level"
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_refine_variant_total_deterministic_monotone(c):
+    """refine_inner's launch variant: defined for every level size, one that
+    can take the level, the same on every call, never a narrower barrier for
+    more pixels, and the cooperative grid at op4's finest level (448x1024).
+    Pure arithmetic."""
+    rank = {"block": 0, "cluster": 1, "grid": 2}
+    sizes = [(h, w) for h in (1, 2, 7, 14, 28, 56, 64, 65, 112, 224, 448, 512, 513)
+             for w in (1, 3, 32, 64, 128, 256, 512, 1024)]
+    last = (-1, 0)
+    for h, w in sorted(sizes, key=lambda s: (s[0] * s[1], s)):
+        v, n = picked = refine_variant(h, w, c)
+        assert picked == refine_variant(h, w, c)
+        assert v in rank and v in refine_variants(h, w)
+        assert (n == 1) if v == "block" else (2 <= n <= 16) if v == "cluster" else (n == 0)
+        assert (rank[v], n if v == "cluster" else 0) >= last, (h, w, v, n, last)
+        last = (rank[v], n if v == "cluster" else 0)
+    assert refine_variant(448, 1024, c) == ("grid", 0)

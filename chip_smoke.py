@@ -8,10 +8,12 @@ kernel against its plain PyTorch version on the card at the shapes the main
 paths give it, and drives seven paths at 1024x436 on tests/goldens/fullres
 through the entry points (dis_flow: operating point 2 gray, op1 gray, op2
 RGB, op3 gray, op4 gray; dis_stereo: op2 gray and RGB), each with the
-launch counters reset just before its run and read just after.  gn_search
-must equal its plain version exactly on every call; refine_inner runs every
-call through each launch variant (block, cluster, grid), which must give the
-same bits, and prints each variant's time and the one refine_variant picks.
+launch counters reset just before its run and read just after.  Both
+search kernels (level_search, gn_search) must equal their plain versions
+exactly on every call; refine_inner and sor_scalar run every call through
+each launch variant (block, cluster, grid), which must give the same bits,
+and print each variant's time, the one refine_variant / sor_variant picks
+and a fit of each variant's cost per phase.
 It checks the outputs against the reference binaries' goldens, the port's CPU path and
 a second run, times pairs, profiles the device, runs the CLI (flow and
 stereo), and prints one JSON line per phase.  The line before the last
@@ -68,7 +70,7 @@ PATHS = {
 CPU_CHECKED = ("op2 gray", "op3 gray", "op4 gray", "stereo gray", "stereo rgb")
 PAIRS_TIMED = {"op2 gray": 10, "op3 gray": 10, "op4 gray": 5, "stereo gray": 10,
                "stereo rgb": 10}
-PROFILED = {"op2 gray": 5, "op3 gray": 3, "op4 gray": 3, "stereo gray": 5}
+PROFILED = {"op2 gray": 5, "op3 gray": 3, "op4 gray": 3, "stereo gray": 5, "stereo rgb": 3}
 
 
 T_START = time.perf_counter()
@@ -209,7 +211,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from of_dis_tpu_torch import io
-    from of_dis_tpu_torch.models.densify import result_absw
     from of_dis_tpu_torch.models.inverse_search import (
         gn_search_reference,
         level_search_reference,
@@ -252,6 +253,11 @@ def main() -> int:
     emit("gn_search occupancy", note="one warp per patch; resident blocks and warps per SM",
          per_instance=occ)
 
+    # The least time gpu_ms reads for one launch: a one-element PyTorch add.
+    one = torch.zeros(1, device=dev)
+    emit("launch floor", note="gpu_ms of one launch of a one-element add",
+         ms=gpu_ms(torch, lambda: one.add_(1.0), 50))
+
     # ---- inputs: each path's pair, and every kernel call one pair makes ----
     inputs = {name: path_inputs(name) for name in PATHS}
     h0, w0 = inputs["op2 gray"][0].shape[:2]
@@ -291,26 +297,19 @@ def main() -> int:
         n_level = PATHS[name][5].get("level_search", 0)
         return lv[i] if kernel == "level_search" else lv[n_level + i]
 
-    def search_check(name, res, ref, cfg, exact):
-        """Kernel vs plain search.  exact: every output equal (gn_search);
-        else p and pt within 2e-3 px and absw within 1e-2 (level_search)."""
-        e_p = float((res.p - ref.p).abs().max())
-        e_pt = float((res.pt - ref.pt).abs().max())
-        absw_ok = bool(torch.allclose(result_absw(res, cfg), result_absw(ref, cfg),
-                                      rtol=1e-2, atol=1e-4))
-        conv_agree = float((res.converged == ref.converged).float().mean())
-        iters_agree = float((res.iters == ref.iters).float().mean())
+    def search_check(name, res, ref, cfg):
+        """Kernel vs plain search: every output equal (p, pt, the weights
+        (pweight of gn_search, absw of level_search), converged, iters)."""
+        weights = "pweight" if res.pweight is not None else "absw"
+        errs = {k: float((getattr(res, k) - getattr(ref, k)).abs().max())
+                for k in ("p", "pt", weights)}
+        differ = {k: int((getattr(res, k) != getattr(ref, k)).sum())
+                  for k in ("converged", "iters")}
         line = dict(case=name, n=int(res.p.shape[0]), max_iter=cfg.max_iter,
-                    max_abs_err_p=e_p, max_abs_err_pt=e_pt, absw_ok=absw_ok,
-                    converged_agree=conv_agree, iters_agree=iters_agree,
+                    **{f"max_abs_err_{k}": e for k, e in errs.items()},
+                    converged_differ=differ["converged"], iters_differ=differ["iters"],
                     mean_trips=float(res.iters.double().mean() + 1))
-        if exact:
-            e_pw = float((res.pweight - ref.pweight).abs().max())
-            line.update(max_abs_err_pweight=e_pw,
-                        ok=(e_p == 0.0 and e_pt == 0.0 and e_pw == 0.0 and iters_agree == 1.0
-                            and conv_agree == 1.0))
-        else:
-            line["ok"] = e_p <= 2e-3 and e_pt <= 2e-3 and absw_ok and conv_agree >= 0.99
+        line["ok"] = all(e == 0.0 for e in errs.values()) and not any(differ.values())
         return line
 
     rows = {}  # kernel -> dict of the kernels line
@@ -319,6 +318,7 @@ def main() -> int:
     ls_err = 0.0
     ls_ms = ls_plain = ls_bound = 0.0
     ls_bound_by = None  # of the finest level, the largest term of the sums
+    ls_level_ms = {}
     # (case, args, kwargs): every call of every path, and the other costs at
     # op2 gray's finest level.  ms, plain_ms and bound_ms of the kernels line
     # sum op2 gray's three calls.
@@ -332,7 +332,7 @@ def main() -> int:
         res = kernels.level_search(*a, **k)
         ref = level_search_reference(*a, **k)
         torch.cuda.synchronize()
-        line = search_check(name, res, ref, a[6], exact=False)
+        line = search_check(name, res, ref, a[6])
         line["level_hw"] = list(a[0].shape[:2])
         if "cost" not in name:
             ms = gpu_ms(torch, lambda: kernels.level_search(*a, **k), 50)
@@ -340,6 +340,7 @@ def main() -> int:
             line.update(ms=ms, bound_ms=b, bound_by=by)
             if name.startswith("op2 gray"):  # the plain version is timed where the row sums
                 pms = gpu_ms(torch, lambda: level_search_reference(*a, **k), 5)
+                ls_level_ms[name.split(" level ")[1]] = ms
                 ls_ms += ms
                 ls_plain += pms
                 ls_bound += b
@@ -348,10 +349,25 @@ def main() -> int:
         emit("kernel level_search", **line)
         require(line["ok"], f"level_search disagrees with its plain version: {line}")
         ls_err = max(ls_err, line["max_abs_err_p"], line["max_abs_err_pt"])
+    # What a GN trip costs: op2 gray's levels at max_iter = min_iter = 4, 8
+    # and 12 (every patch runs max_iter + 1 trips), fit to a fixed cost per
+    # launch plus a cost per trip.
+    for i, (a, k) in enumerate(calls["op2 gray"]["level_search"]):
+        t = {}
+        for it in (4, 8, 12):
+            cfg_i = dataclasses.replace(a[6], max_iter=it, min_iter=it)
+            args_i = a[:6] + (cfg_i,) + a[7:]
+            t[it] = gpu_ms(torch, lambda: kernels.level_search(*args_i, **k), 30) * 1e3
+        per_trip, fixed = np.polyfit([it + 1.0 for it in t], list(t.values()), 1)
+        level = level_of("op2 gray", i, "level_search")
+        emit("level_search phase costs", case=f"op2 gray level {level}", n=int(a[4].shape[0]),
+             us_per_trip=float(per_trip), us_fixed=float(fixed),
+             us_at_max_iter={str(it): u for it, u in t.items()})
+
     rows["level_search"] = dict(
         source="level_search.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:1124",
         per="op2 gray", max_abs_err=ls_err, ms=ls_ms, plain_ms=ls_plain, bound_ms=ls_bound,
-        bound_by=ls_bound_by)
+        bound_by=ls_bound_by, level_ms=ls_level_ms)
 
     # ---- kernel gn_search: every call of every path, exact; times at op3 and op4 ----
     gn_err = 0.0
@@ -364,7 +380,7 @@ def main() -> int:
             res = kernels.gn_search(*a, **k)
             ref = gn_search_reference(*a, **k)
             torch.cuda.synchronize()
-            line = search_check(case, res, ref, a[4], exact=True)
+            line = search_check(case, res, ref, a[4])
             line["level_hw"] = list(a[0].shape[:2])
             if name in ("op3 gray", "op4 gray"):
                 ms = gpu_ms(torch, lambda: kernels.gn_search(*a, **k), 20)
@@ -470,47 +486,92 @@ def main() -> int:
         return (f(0.3), f(0.3), f(0.5, 2.0).abs(), f(0.2), f(0.5, 2.0).abs(), f(1.0), f(1.0),
                 wh, wv)
 
-    def sor_case(kernel, case, a, timed):
-        ker = getattr(kernels, kernel)
-        plain = sor_scalar_rb if kernel == "sor_scalar" else sor_coupled_rb
-        out, ref = ker(*a), plain(*a)
-        out = out if isinstance(out, tuple) else (out,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
+    def sor_coupled_case(case, a):
+        out, ref = kernels.sor_coupled(*a), sor_coupled_rb(*a)
         torch.cuda.synchronize()
         err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
         ok = all(bool(torch.allclose(o, r, rtol=1e-5, atol=1e-5)) for o, r in zip(out, ref))
         h, w = a[0].shape
         line = dict(case=case, hw=[h, w], iterations=int(a[-2]), max_abs_err=err, ok=ok)
+        ms = gpu_ms(torch, lambda: kernels.sor_coupled(*a), 50)
+        pms = gpu_ms(torch, lambda: sor_coupled_rb(*a), 5)
+        b, by = bound_ms(*sor_work(2, h, w, int(a[-2])))
+        line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
+        emit("kernel sor_coupled", **line)
+        require(ok, f"sor_coupled disagrees with its plain version: {line}")
+        return line
+
+    def sor_scalar_case(case, a, timed):
+        """Every launch variant that can take the call's shape: bit-equal to
+        one another and to the plain version (which divides and sums in the
+        kernel's order); each variant's time."""
+        h, w = a[0].shape
+        picked = kernels.sor_variant(h, w)
+        variants = kernels.sor_variants(h, w)
+        outs = {v: kernels.sor_scalar(*a, variant=v) for v in variants}
+        ref = sor_scalar_rb(*a)
+        torch.cuda.synchronize()
+        out = outs[picked[0]]
+        bit_equal = all(torch.equal(o, out) for o in outs.values())
+        err = float((out - ref).abs().max())
+        ok = bool(bit_equal and torch.equal(out, ref))
+        line = dict(case=case, hw=[h, w], iterations=int(a[5]), picked=list(picked),
+                    variants_bit_equal=bit_equal, max_abs_err=err, ok=ok,
+                    variant_ms={v: gpu_ms(torch, lambda v=v: kernels.sor_scalar(*a, variant=v), 20)
+                                for v in variants})
         if timed:
-            ms = gpu_ms(torch, lambda: ker(*a), 50)
-            pms = gpu_ms(torch, lambda: plain(*a), 5)
-            b, by = bound_ms(*sor_work(len(out), h, w, int(a[-2])))
+            ms = gpu_ms(torch, lambda: kernels.sor_scalar(*a), 50)
+            pms = gpu_ms(torch, lambda: sor_scalar_rb(*a), 5)
+            b, by = bound_ms(*sor_work(1, h, w, int(a[5])))
             line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
-        emit(f"kernel {kernel}", **line)
-        require(ok, f"{kernel} disagrees with its plain version: {line}")
+        emit("kernel sor_scalar", **line)
+        require(ok, f"sor_scalar variants disagree or leave their plain version: {line}")
         return line
 
     # sor_scalar: every call of both stereo paths (15 per pair: levels 5, 4, 3
-    # with n_inner 6, 5, 4); the stereo gray calls and 448x1024 are timed.
+    # with n_inner 6, 5, 4) and 448x1024, through every variant; ms,
+    # plain_ms and bound_ms of the kernels line sum stereo gray's calls.
     ss = dict(source="sor_rb.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:1350",
               per="stereo gray", max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-              bound_by=None)
+              bound_by=None, level_ms={}, variant_ms={})
+    fit_cases = {}  # one call per level shape of stereo gray, for the phase costs
     for name in ("stereo gray", "stereo rgb"):
         cfg = inputs[name][2]
         levels = [sl for sl in range(cfg.sc_f, cfg.sc_l - 1, -1)
                   for _ in range(cfg.tv_innerit * (sl + 1))]
         for sl, (a, _) in zip(levels, calls[name]["sor_scalar"]):
-            line = sor_case("sor_scalar", f"{name} level {sl}", a, name == "stereo gray")
+            line = sor_scalar_case(f"{name} level {sl}", a, name == "stereo gray")
             ss["max_abs_err"] = max(ss["max_abs_err"], line["max_abs_err"])
             if name == "stereo gray":
+                fit_cases.setdefault(f"{name} level {sl}", a)
                 for key in ("ms", "plain_ms", "bound_ms"):
                     ss[key] += line[key]
                 ss["bound_by"] = line["bound_by"]
-    s = sor_system(448, 1024, 1)
-    a_ss = (s[0], s[2], s[5], s[7], s[8], 3, 1.6)
-    line = sor_case("sor_scalar", "random 448x1024", a_ss, True)
+                ss["level_ms"][str(sl)] = ss["level_ms"].get(str(sl), 0.0) + line["ms"]
+                for v, t in line["variant_ms"].items():
+                    ss["variant_ms"][v] = ss["variant_ms"].get(v, 0.0) + t
+    # Between and above stereo op2's shapes, where sor_variant's thresholds lie.
+    for h, w in ((40, 96), (48, 112), (80, 160), (96, 192), (112, 256), (224, 512),
+                 (448, 1024)):
+        s = sor_system(h, w, h * w)
+        fit_cases[f"random {h}x{w}"] = (s[0], s[2], s[5], s[7], s[8], 3, 1.6)
+    line = sor_scalar_case("random 448x1024", fit_cases["random 448x1024"], True)
     ss["max_abs_err"] = max(ss["max_abs_err"], line["max_abs_err"])
     rows["sor_scalar"] = ss
+    # What a half-step costs in each variant: iterations 1, 3 and 9 (2, 6, 18
+    # half-steps, each with the barrier before it) fit to a fixed cost per
+    # launch plus a cost per half-step.
+    for name, a in fit_cases.items():
+        h, w = a[0].shape
+        fit = {}
+        for v in kernels.sor_variants(h, w):
+            t = {it: gpu_ms(torch, lambda v=v, it=it: kernels.sor_scalar(
+                *a[:5], it, a[6], variant=v), 10) * 1e3 for it in (1, 3, 9)}
+            per_half, fixed = np.polyfit([2.0 * it for it in t], list(t.values()), 1)
+            fit[v] = dict(us_per_half_step=float(per_half), us_fixed=float(fixed),
+                          us_at_iterations={str(it): u for it, u in t.items()})
+        emit("sor_scalar phase costs", case=name, hw=[h, w],
+             picked=list(kernels.sor_variant(h, w)), per_variant=fit)
 
     # sor_coupled: on no path (flow levels run it inside refine_inner); at
     # op2's level shapes and 448x1024 on seeded fields.
@@ -518,8 +579,7 @@ def main() -> int:
               per=None, max_abs_err=0.0,
               ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None)
     for h, w in ((14, 32), (28, 64), (56, 128), (448, 1024)):
-        line = sor_case("sor_coupled", f"random {h}x{w}", sor_system(h, w, h + w) + (3, 1.6),
-                        True)
+        line = sor_coupled_case(f"random {h}x{w}", sor_system(h, w, h + w) + (3, 1.6))
         sc["max_abs_err"] = max(sc["max_abs_err"], line["max_abs_err"])
         if h < 448:
             for key in ("ms", "plain_ms", "bound_ms"):
@@ -659,11 +719,12 @@ def main() -> int:
              max_abs_err=rows[k]["max_abs_err"], ms=rows[k]["ms"],
              plain_ms=rows[k]["plain_ms"], bound_ms=rows[k]["bound_ms"],
              bound_by=rows[k]["bound_by"], library_ms=None,
-             **({"level_ms": rows[k]["level_ms"]} if "level_ms" in rows[k] else {}))
+             **{key: rows[k][key] for key in ("level_ms", "variant_ms") if key in rows[k]})
         for k in KERNELS
     ]
     emit("kernels", note="launches, ms, plain_ms and bound_ms are per pair of the path "
-         "named in `per` (the sum over its launches; level_ms splits ms by pyramid level); "
+         "named in `per` (the sum over its launches; level_ms splits ms by pyramid level, "
+         "variant_ms gives it for each launch variant); "
          "sor_coupled is on no path and its times sum one launch at each op2 level shape",
          per={k: rows[k]["per"] for k in KERNELS}, launches_per_path=counts,
          pair_ms_median=latency, checks={k: "ok" for k in KERNELS},

@@ -5,32 +5,32 @@
 // counterpart of of_dis_tpu/ops/pallas_kernels.py::_gn_machine, which the
 // TPU kernels _level_kernel, _gn_kernel and _gn_kernel_tiled share.
 //
-// The machine is written once, over a layout that says how a patch's psz^2
-// pixels lie over threads:
-//   BlockLayout  one block per patch, one pixel per thread (psz^2 threads
-//                rounded up to whole warps); level_search.cu.
-//   WarpLayout   one warp per patch, lane l holding the pixels l + 32 q for
-//                q < NW = ceil(psz^2 / 32); gn_search.cu.
-// Slots past psz^2 hold zeros and take part in every reduction.  The
-// machine loads the patch's (sy, sx, C) search window of the padded target
-// image into shared memory at the clipped window base (inverse_search.py
-// :303-308), then runs max_iter + 1 trips: bilinear extraction from the
-// window (taps outside it read 0), mean normalisation, the costs L2 / L1 /
-// pseudo-Huber / NCC, the 2x2 (or 1x1) solve, the outlier / out-of-bounds
-// reset, the stereo sign clamp and the reference's convergence predicate.
+// Both kernels run one warp per patch (WarpLayout): lane l holds the patch
+// pixels l + 32 q for q < NP = ceil(psz^2 / 32); slots past psz^2 hold zeros
+// and take part in every reduction.  WARPS warps share a block, each with its
+// own search window in shared memory, and each warp takes patches warp_id,
+// warp_id + total warps, ... until none is left (launch_search below).
+// load_window copies the patch's (sy, sx, C) search window of the padded
+// target image into shared memory at the clipped window base
+// (inverse_search.py:303-308); gn_machine then runs max_iter + 1 trips:
+// bilinear extraction from the window (taps outside it read 0), mean
+// normalisation, the costs L2 / L1 / pseudo-Huber / NCC, the 2x2 (or 1x1)
+// solve, the outlier / out-of-bounds reset, the stereo sign clamp and the
+// reference's convergence predicate.
 //
-// Both layouts sum a patch in one order: per pixel the channels in order,
-// then a 32-pixel butterfly (pairs l, l ^ 16 first) over each group of 32
-// pixels, then the groups added in order q = 0 .. NW-1.  So every thread
-// holds the same per-patch scalars, the trip loop is uniform across the
-// patch's threads, `converged` never splits a barrier or a warp, and the
-// results are bit-reproducible and equal to the plain version's
-// (models/inverse_search.py::_patch_sum).
+// A patch is summed in one order: per pixel the channels in order, then a
+// 32-pixel butterfly (pairs l, l ^ 16 first) over each group of 32 pixels,
+// then the groups added in order q = 0 .. NP-1.  So every lane holds the
+// same per-patch scalars, the trip loop is uniform across the warp,
+// `converged` never splits it, and the results are bit-reproducible and
+// equal to the plain version's (models/inverse_search.py::_patch_sum).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "launch.cuh"
 
 namespace gnm {
 
@@ -42,47 +42,6 @@ struct GNConsts {
 
 __host__ __device__ constexpr int ceil_groups(int npix) { return (npix + 31) / 32; }
 __host__ __device__ constexpr int pow2_at_least(int m) { return m <= 1 ? 1 : 2 * pow2_at_least((m + 1) / 2); }
-
-// One block per patch: thread t holds pixel t.  red: 3 * NW floats of
-// shared memory.  The window's row stride is its side.
-template <int PSZ_>
-struct BlockLayout {
-  static constexpr int PSZ = PSZ_;
-  static constexpr int NW = ceil_groups(PSZ * PSZ);  // warps per patch
-  static constexpr int THREADS = 32 * NW;            // threads per patch
-  static constexpr int NP = 1;                       // pixels per thread
-  static constexpr int RS = 2 * PSZ + 2;             // window row stride
-  float* red;
-
-  __device__ int rank() const { return threadIdx.x; }
-  __device__ int pixel(int) const { return threadIdx.x; }
-  __device__ void sync() const { __syncthreads(); }
-
-  // Sums of K values over the block; every thread receives the totals.
-  // Warp butterfly, then lane 0 of each warp stores its partial and every
-  // thread adds the partials in warp order.
-  template <int K>
-  __device__ void sum(const float (&v)[K][NP], float (&s)[K]) const {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float x = v[k][0];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-      if (lane == 0) red[k * NW + warp] = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float x = red[k * NW];
-#pragma unroll
-      for (int q = 1; q < NW; ++q) x += red[k * NW + q];
-      s[k] = x;
-    }
-    __syncthreads();  // red is reused by the next reduction
-  }
-};
 
 // The five shuffle steps (OFF = 16 .. 1) of WarpLayout::sum over the LIVE
 // partials each lane holds; each step's count is a compile-time constant,
@@ -114,21 +73,18 @@ template <int PSZ_>
 struct WarpLayout {
   static constexpr int PSZ = PSZ_;
   static constexpr int NP = ceil_groups(PSZ * PSZ);  // pixels per lane (32-pixel groups)
-  static constexpr int THREADS = 32;                 // threads per patch
   static constexpr int RS = 2 * PSZ + 2 + ((PSZ - (2 * PSZ + 2)) % 32 + 32) % 32;
   int lane;
 
-  __device__ int rank() const { return lane; }
   __device__ int pixel(int q) const { return lane + 32 * q; }
-  __device__ void sync() const { __syncwarp(); }
 
   // Sums of K values over the warp's NP groups; every lane receives the
   // totals.  A reduce-scatter: while a lane holds more than one partial it
   // keeps half and sends its partner the other half, so each shuffle
   // carries a partial that is needed, and after the five steps lane
   // 32 / MP * g holds group g's total.  Each tree node adds the same two
-  // operands as the butterfly (own + partner, and a + b == b + a), so the
-  // totals are bit-equal to BlockLayout's.  Then the groups are added in
+  // operands as a butterfly (own + partner, and a + b == b + a), so the
+  // totals are bit-equal to a butterfly's.  Then the groups are added in
   // order.  Shuffles per call: MP - 1 + 5 - log2(MP) + K * NP with MP the
   // power of two >= K * NP (31 instead of 75 at psz 12, K = 3).
   template <int K>
@@ -173,30 +129,82 @@ __device__ __forceinline__ bool out_of_bounds(float x, float y, int w, int h, in
 template <int NP, int C>
 struct GNOut {
   float p0, p1, ptx, pty;
-  float pweight[NP][C];  // |residual| of this thread's patch pixels
+  float pweight[NP][C];  // |residual| of this lane's patch pixels
   bool conv;
   int cnt;               // GN iterations run
 };
 
-// The templates of this thread's pixels (T, DX, DY per pixel and channel),
+// Where a patch starts (OptimizeStart) and the base of its search window.
+struct Start {
+  float stx, sty;
+  int by, bx;  // window base in the padded image, clipped into it
+  bool oob0;   // the start is out of bounds
+};
+
+// The start of the patch with static centre (prx, pry) and start
+// displacement (pin0, pin1), and its (sy, sx, C) search window of the padded
+// target image copied into win (C * (2 psz + 2) rows of WarpLayout::RS
+// floats, channel-planar).  The copies are asynchronous (cp.async, global to
+// shared without a register), issued back to back; gn_machine waits for them
+// before its first trip.  A kernel issues its template loads before this
+// call, so that the two memory latencies overlap.
+template <int PSZ, int C, int NOP>
+__device__ __forceinline__ Start load_window(const WarpLayout<PSZ>& lay, const GNConsts& P,
+                                             const float* __restrict__ imb, float prx,
+                                             float pry, float pin0, float pin1, float* win) {
+  constexpr int S = 2 * PSZ + 2;
+  constexpr int RS = WarpLayout<PSZ>::RS;
+  constexpr int LB = -(PSZ / 2);
+  const int sy = P.sy, sx = P.sx, wp = P.wp;
+  Start st;
+  st.stx = prx + pin0;
+  st.sty = NOP == 2 ? pry + pin1 : pry;
+  st.oob0 = out_of_bounds(st.stx, st.sty, P.w, P.h, PSZ);
+  st.by = min(max(int(floorf(st.sty)) + LB - PSZ / 2 + P.pad, 0), P.hp - sy);
+  st.bx = min(max(int(floorf(st.stx)) + LB - PSZ / 2 + P.pad, 0), wp - sx);
+  // Lane l copies the window's floats l, l + 32, ...: row yy, float r of
+  // the row (x = r / C, channel r % C), walked without a runtime division.
+  const int row = sx * C;
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(win));
+  const float* src = imb + (st.by * wp + st.bx) * C;
+  int yy = lay.lane / row, r = lay.lane - yy * row;
+  for (int k = lay.lane; k < sy * row; k += 32) {
+    const int xx = r / C, c = r - xx * C;
+    const unsigned dst = base + unsigned((c * S + yy) * RS + xx) * 4u;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(src + yy * wp * C + r));
+    r += 32;
+    while (r >= row) {
+      r -= row;
+      ++yy;
+    }
+  }
+  return st;
+}
+
+// The templates of this lane's pixels (T, DX, DY per pixel and channel),
 // the patch's Hessian (h00, h01, h11; det; with the 1e-10 bump already
 // applied), the template norm tn (cost 10 only), the static centre (prx,
-// pry) and the start displacement (pin0, pin1).  win is the patch's window
-// in shared memory, C * (2 psz + 2) rows of L::RS floats.
-template <class L, int C, int NOP>
-__device__ __forceinline__ GNOut<L::NP, C> gn_machine(
-    const L& lay, const GNConsts& P, const float* __restrict__ imb,
-    const float (&T)[L::NP][C], const float (&DX)[L::NP][C], const float (&DY)[L::NP][C],
+// pry), the start displacement (pin0, pin1), and the start and window that
+// load_window gave.
+template <int PSZ, int C, int NOP>
+__device__ __forceinline__ GNOut<WarpLayout<PSZ>::NP, C> gn_machine(
+    const WarpLayout<PSZ>& lay, const GNConsts& P,
+    const float (&T)[WarpLayout<PSZ>::NP][C], const float (&DX)[WarpLayout<PSZ>::NP][C],
+    const float (&DY)[WarpLayout<PSZ>::NP][C],
     float h00, float h01, float h11, float det, float tn, float prx, float pry, float pin0,
-    float pin1, float* win) {
-  constexpr int PSZ = L::PSZ;
+    float pin1, const Start& st, const float* win) {
+  using L = WarpLayout<PSZ>;
   constexpr int NP = L::NP;
   constexpr int NPIX = PSZ * PSZ;
   constexpr int S = 2 * PSZ + 2;
   constexpr int RS = L::RS;
   constexpr int LB = -(PSZ / 2);
   const float novals = float(C * NPIX);
-  const int sy = P.sy, sx = P.sx, wp = P.wp;
+  const int sy = P.sy, sx = P.sx;
+  const float stx = st.stx, sty = st.sty;
+  const int by = st.by, bx = st.bx;
+  const bool oob0 = st.oob0;
   bool has_px[NP];
   int poff[NP];  // window offset of each pixel (row * RS + column; 0 past psz^2)
 #pragma unroll
@@ -205,21 +213,8 @@ __device__ __forceinline__ GNOut<L::NP, C> gn_machine(
     has_px[q] = t < NPIX;
     poff[q] = has_px[q] ? (t / PSZ) * RS + t % PSZ : 0;
   }
-
-  // ---- start position, window base and window (OptimizeStart) ----
-  const float stx = prx + pin0;
-  const float sty = NOP == 2 ? pry + pin1 : pry;
-  const bool oob0 = out_of_bounds(stx, sty, P.w, P.h, PSZ);
-  const int by = min(max(int(floorf(sty)) + LB - PSZ / 2 + P.pad, 0), P.hp - sy);
-  const int bx = min(max(int(floorf(stx)) + LB - PSZ / 2 + P.pad, 0), wp - sx);
-  for (int k = lay.rank(); k < sy * sx * C; k += L::THREADS) {
-    const int yy = k / (sx * C);
-    const int rem = k - yy * sx * C;
-    const int xx = rem / C;
-    const int c = rem - xx * C;
-    win[(c * S + yy) * RS + xx] = imb[((by + yy) * wp + bx) * C + rem];
-  }
-  lay.sync();
+  asm volatile("cp.async.wait_all;\n" ::: "memory");  // this lane's window copies
+  __syncwarp();                                        // and every other lane's
 
   // ---- GN state machine (patch.cpp:119-284) ----
   // pweight is |pdiff| on every path, so only pdiff is kept.  jb = J^T pdiff
@@ -238,7 +233,7 @@ __device__ __forceinline__ GNOut<L::NP, C> gn_machine(
   bool conv = false;
 
   for (int trip = 0; trip <= P.max_iter; ++trip) {
-    if (conv) break;  // uniform over the patch's threads: a converged patch is frozen
+    if (conv) break;  // uniform over the warp: a converged patch is frozen
     const bool first = trip == 0;
     const int cnt_n = first ? 0 : cnt + 1;
 
@@ -417,6 +412,66 @@ __device__ __forceinline__ GNOut<L::NP, C> gn_machine(
   out.conv = conv;
   out.cnt = cnt;
   return out;
+}
+
+// ---- launch plumbing of both search kernels ----
+
+constexpr int WARPS = 4;  // patches (warps) per block
+
+// Floats of one warp's search window: C * (2 psz + 2) rows of WarpLayout::RS.
+template <int PSZ, int C>
+__host__ __device__ constexpr int window_floats() {
+  return C * (2 * PSZ + 2) * WarpLayout<PSZ>::RS;
+}
+
+template <int PSZ, int C>
+constexpr size_t window_smem() {
+  return WARPS * window_floats<PSZ, C>() * sizeof(float);
+}
+
+// Blocks of a search kernel for (psz, C) that fit on one SM at once, with
+// its dynamic shared memory allowed, both once per device; `kept` is a
+// static of the kernel instance's launcher.
+template <int PSZ, int C, class Params>
+cudaError_t search_blocks_per_sm(void (*kernel)(Params), launch::PerDevice& kept,
+                                 int* per_sm) {
+  return kept.get(per_sm, [&](int, int* v) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(window_smem<PSZ, C>()));
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(v, kernel, 32 * WARPS,
+                                                        window_smem<PSZ, C>());
+    return e;
+  });
+}
+
+// One launch of n patches: as many blocks as fit on the card at once, and no
+// more than the patches need; each warp strides over the patches.
+template <int PSZ, int C, class Params>
+cudaError_t launch_search(void (*kernel)(Params), launch::PerDevice& kept, const Params& P,
+                          cudaStream_t stream) {
+  int per_sm = 0, sms = 0;
+  cudaError_t e = search_blocks_per_sm<PSZ, C>(kernel, kept, &per_sm);
+  if (e == cudaSuccess) e = launch::sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const int grid = min((P.k.n + WARPS - 1) / WARPS, per_sm * sms);
+  if (grid < 1) return cudaErrorInvalidConfiguration;
+  kernel<<<grid, 32 * WARPS, window_smem<PSZ, C>(), stream>>>(P);
+  return cudaGetLastError();
+}
+
+// F<psz, c, nop>::run(a...) for the runtime (psz, c, nop).
+template <template <int, int, int> class F, class... A>
+cudaError_t dispatch(int psz, int c, int nop, A... a) {
+  if (psz == 8 && c == 1 && nop == 2) return F<8, 1, 2>::run(a...);
+  if (psz == 8 && c == 3 && nop == 2) return F<8, 3, 2>::run(a...);
+  if (psz == 8 && c == 1 && nop == 1) return F<8, 1, 1>::run(a...);
+  if (psz == 8 && c == 3 && nop == 1) return F<8, 3, 1>::run(a...);
+  if (psz == 12 && c == 1 && nop == 2) return F<12, 1, 2>::run(a...);
+  if (psz == 12 && c == 3 && nop == 2) return F<12, 3, 2>::run(a...);
+  if (psz == 12 && c == 1 && nop == 1) return F<12, 1, 1>::run(a...);
+  if (psz == 12 && c == 3 && nop == 1) return F<12, 3, 1>::run(a...);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace gnm

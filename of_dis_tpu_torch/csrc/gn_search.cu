@@ -64,12 +64,7 @@ struct GNSearchParams {
   gnm::GNConsts k;
 };
 
-constexpr int WARPS = 4;  // patches (warps) per block
-
-template <int PSZ, int C>
-__host__ __device__ constexpr int window_floats() {
-  return C * (2 * PSZ + 2) * gnm::WarpLayout<PSZ>::RS;
-}
+using gnm::WARPS;
 
 template <int PSZ, int C, int NOP>
 __global__ void __launch_bounds__(32 * WARPS)
@@ -79,7 +74,7 @@ gn_search_kernel(const GNSearchParams P) {
   constexpr int NPIX = PSZ * PSZ;
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
-  float* win = smem + warp * window_floats<PSZ, C>();
+  float* win = smem + warp * gnm::window_floats<PSZ, C>();
   const L lay{int(threadIdx.x & 31)};
 
   for (int n = blockIdx.x * WARPS + warp; n < P.k.n; n += gridDim.x * WARPS) {
@@ -105,6 +100,11 @@ gn_search_kernel(const GNSearchParams P) {
     } else {
       h00 = P.hes[n];
     }
+    const float prx = P.ptref[2 * n], pry = P.ptref[2 * n + 1];
+    const float pin0 = P.pinit[NOP * n];
+    const float pin1 = NOP == 2 ? P.pinit[NOP * n + 1] : 0.f;
+    const gnm::Start st =
+        gnm::load_window<PSZ, C, NOP>(lay, P.k, P.imb, prx, pry, pin0, pin1, win);
     float tn = 0.f;
     if (P.k.cost == 10) {
       float v[1][NP], s[1];
@@ -118,11 +118,8 @@ gn_search_kernel(const GNSearchParams P) {
       tn = sqrtf(s[0]);
     }
 
-    const float prx = P.ptref[2 * n], pry = P.ptref[2 * n + 1];
-    const float pin0 = P.pinit[NOP * n];
-    const float pin1 = NOP == 2 ? P.pinit[NOP * n + 1] : 0.f;
-    const gnm::GNOut<NP, C> r = gnm::gn_machine<L, C, NOP>(
-        lay, P.k, P.imb, T, DX, DY, h00, h01, h11, det, tn, prx, pry, pin0, pin1, win);
+    const gnm::GNOut<NP, C> r = gnm::gn_machine<PSZ, C, NOP>(
+        lay, P.k, T, DX, DY, h00, h01, h11, det, tn, prx, pry, pin0, pin1, st, win);
 
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
@@ -144,52 +141,25 @@ gn_search_kernel(const GNSearchParams P) {
   }
 }
 
-// How many blocks of the kernel fit on one SM, and the SMs of the device.
+// The kernel instance's launch, and its resident blocks per SM.
+template <int PSZ, int C, int NOP>
+struct Search {
+  static launch::PerDevice& kept() {
+    static launch::PerDevice k;
+    return k;
+  }
+  static cudaError_t run(const GNSearchParams* P, cudaStream_t stream) {
+    return gnm::launch_search<PSZ, C>(gn_search_kernel<PSZ, C, NOP>, kept(), *P, stream);
+  }
+};
+
 template <int PSZ, int C, int NOP>
 struct Occupancy {
-  static constexpr size_t SMEM = WARPS * window_floats<PSZ, C>() * sizeof(float);
-  static cudaError_t run(int* blocks_per_sm, int* sms) {
-    cudaError_t e = cudaFuncSetAttribute(gn_search_kernel<PSZ, C, NOP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
-    int dev = 0;
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks_per_sm, gn_search_kernel<PSZ, C, NOP>, 32 * WARPS, SMEM);
-    return e;
+  static cudaError_t run(int* blocks_per_sm) {
+    return gnm::search_blocks_per_sm<PSZ, C>(gn_search_kernel<PSZ, C, NOP>,
+                                             Search<PSZ, C, NOP>::kept(), blocks_per_sm);
   }
 };
-
-// One launch: as many blocks as fit on the card at once, and no more than
-// the patches need.
-template <int PSZ, int C, int NOP>
-struct Launch {
-  static cudaError_t run(const GNSearchParams* P, cudaStream_t stream) {
-    int per_sm = 0, sms = 0;
-    cudaError_t e = Occupancy<PSZ, C, NOP>::run(&per_sm, &sms);
-    if (e != cudaSuccess) return e;
-    const int grid = min((P->k.n + WARPS - 1) / WARPS, per_sm * sms);
-    if (grid < 1) return cudaErrorInvalidConfiguration;
-    gn_search_kernel<PSZ, C, NOP>
-        <<<grid, 32 * WARPS, Occupancy<PSZ, C, NOP>::SMEM, stream>>>(*P);
-    return cudaGetLastError();
-  }
-};
-
-// F<psz, c, nop>::run(a...) for the runtime (psz, c, nop).
-template <template <int, int, int> class F, class... A>
-cudaError_t dispatch(int psz, int c, int nop, A... a) {
-  if (psz == 8 && c == 1 && nop == 2) return F<8, 1, 2>::run(a...);
-  if (psz == 8 && c == 3 && nop == 2) return F<8, 3, 2>::run(a...);
-  if (psz == 8 && c == 1 && nop == 1) return F<8, 1, 1>::run(a...);
-  if (psz == 8 && c == 3 && nop == 1) return F<8, 3, 1>::run(a...);
-  if (psz == 12 && c == 1 && nop == 2) return F<12, 1, 2>::run(a...);
-  if (psz == 12 && c == 3 && nop == 2) return F<12, 3, 2>::run(a...);
-  if (psz == 12 && c == 1 && nop == 1) return F<12, 1, 1>::run(a...);
-  if (psz == 12 && c == 3 && nop == 1) return F<12, 3, 1>::run(a...);
-  return cudaErrorInvalidValue;
-}
 
 }  // namespace
 
@@ -209,14 +179,13 @@ extern "C" int gn_search_launch(
                          {n, hp, wp, pad, w, h, sy, sx, max_iter, min_iter, cost, patch_norm,
                           stereo_clamp, normoutlier, dp_thresh_sq, dr_thresh, res_thresh,
                           outlier_sq, minerrval}};
-  return int(dispatch<Launch>(psz, c, nop, &P, static_cast<cudaStream_t>(stream)));
+  return int(gnm::dispatch<Search>(psz, c, nop, &P, static_cast<cudaStream_t>(stream)));
 }
 
 // Blocks of the kernel for (psz, c, nop) that fit on one SM at once, and
 // the warps (patches) per block; returns the cudaError_t (0 on success).
 extern "C" int gn_search_occupancy(int psz, int c, int nop, int* blocks_per_sm,
                                    int* warps_per_block) {
-  int sms = 0;
   *warps_per_block = WARPS;
-  return int(dispatch<Occupancy>(psz, c, nop, blocks_per_sm, &sms));
+  return int(gnm::dispatch<Occupancy>(psz, c, nop, blocks_per_sm));
 }

@@ -22,7 +22,8 @@
 // between phases (2 + 2 * solver_it per inner iteration).  The design: one
 // kernel body, templated on that barrier, with the per-pixel system (wh,
 // wv, a12, b1, b2, omega/A11, omega/A22) and du, dv in scratch fields the
-// wrapper allocates (L2 holds them), and three ways to launch it:
+// wrapper allocates (L2 holds them), and three ways to launch it (the
+// barriers are launch.cuh's, shared with sor_rb.cu's scalar solver):
 //   block    one CTA of up to 1024 threads, __syncthreads(), the scratch
 //            fields in its shared memory; small levels.
 //   cluster  2-16 CTAs of one thread-block cluster (cudaLaunchKernelEx),
@@ -39,13 +40,11 @@
 // bit-reproducible.  ops/kernels.py::refine_variant picks the variant from
 // the level's shape.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch.cuh"
 #include "sor_rb.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -54,8 +53,6 @@ constexpr float DATANORM = float(0.1 * 0.1);
 constexpr float EPS_COLOR = float(0.001 * 0.001);
 constexpr float EPS_GRAD = float(0.001 * 0.001);
 constexpr float EPS_SMOOTH = float(0.001 * 0.001);
-constexpr int GRID_THREADS = 256;
-constexpr int CLUSTER_THREADS = 1024;
 
 struct RefineParams {
   const float *wx, *wy, *mask;                              // (h, w)
@@ -198,31 +195,6 @@ __device__ __forceinline__ void coefficients(const RefineParams& P, int y, int x
   }
 }
 
-// The barrier between phases, the largest block each variant launches, and
-// whether the scratch fields live in the block's shared memory.
-struct BlockSync {
-  static constexpr int MAX_THREADS = 1024;
-  static constexpr bool SHARED_FIELDS = true;
-  __device__ static void sync() { __syncthreads(); }
-};
-struct ClusterSync {
-  static constexpr int MAX_THREADS = CLUSTER_THREADS;
-  static constexpr bool SHARED_FIELDS = false;
-  __device__ static void sync() { cg::this_cluster().sync(); }
-};
-struct GridSync {
-  static constexpr int MAX_THREADS = GRID_THREADS;
-  static constexpr bool SHARED_FIELDS = false;
-  __device__ static void sync() { cg::this_grid().sync(); }
-};
-
-// Row of pixel k: a multiply-high by the reciprocal the host computed,
-// exact for every k < 2^32 (an integer division by a runtime w costs ~20
-// instructions, and the loops below need one per pixel and phase).
-__device__ __forceinline__ int row_of(const RefineParams& P, int k) {
-  return P.w == 1 ? k : int(__umul64hi((unsigned long long)k, P.w_inv));
-}
-
 // n_inner iterations over the level, every thread of the launch striding
 // over the pixels (smoothness, coefficients) or over the pixel pairs
 // (2j, 2j + 1) (SOR half-steps).  A pair's two pixels have different
@@ -239,12 +211,12 @@ __device__ __forceinline__ void inner_loop(const RefineParams& P) {
   for (int it = 0; it < P.n_inner; ++it) {
     const bool zero_d = it == 0;
     for (int k = first; k < npx; k += stride) {
-      const int y = row_of(P, k);
+      const int y = launch::row_of(k, P.w, P.w_inv);
       P.s[k] = smoothness(P, y, k - y * P.w, zero_d);
     }
     Sync::sync();
     for (int k = first; k < npx; k += stride) {
-      const int y = row_of(P, k);
+      const int y = launch::row_of(k, P.w, P.w_inv);
       coefficients<C>(P, y, k - y * P.w, zero_d);
     }
     Sync::sync();
@@ -253,7 +225,7 @@ __device__ __forceinline__ void inner_loop(const RefineParams& P) {
         const bool last = it == P.n_inner - 1 && sweep == P.solver_it - 1 && color == 1;
         for (int j = first; j < npairs; j += stride) {
           const int k0 = 2 * j;
-          const int y0 = row_of(P, k0), x0 = k0 - y0 * P.w;
+          const int y0 = launch::row_of(k0, P.w, P.w_inv), x0 = k0 - y0 * P.w;
           const bool second = ((x0 + y0) & 1) != color;  // this colour's pixel is k0 + 1
           const int k = k0 + second;
           if (k < npx) {
@@ -304,6 +276,10 @@ __global__ void __launch_bounds__(Sync::MAX_THREADS) refine_inner_kernel(const R
   }
 }
 
+using launch::BlockSync;
+using launch::ClusterSync;
+using launch::GridSync;
+
 int threads_for(int px) { return min(1024, max(32, (px + 31) / 32 * 32)); }
 
 // One CTA with its ten scratch fields in shared memory; a level whose fields
@@ -311,15 +287,12 @@ int threads_for(int px) { return min(1024, max(32, (px + 31) / 32 * 32)); }
 template <int C>
 cudaError_t launch_block(const RefineParams& P, cudaStream_t stream) {
   auto kernel = refine_inner_kernel<C, BlockSync>;
-  int dev = 0, max_smem = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  static launch::PerDevice smem_allowed;
+  int max_smem = 0;
+  cudaError_t e = launch::allow_optin_smem(kernel, smem_allowed, &max_smem);
   if (e != cudaSuccess) return e;
   const size_t smem = size_t(SCRATCH_FIELDS) * P.h * P.w * sizeof(float);
   if (smem > size_t(max_smem)) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
   kernel<<<1, threads_for(P.h * P.w), smem, stream>>>(P);
   return cudaGetLastError();
 }
@@ -328,9 +301,12 @@ template <int C>
 cudaError_t launch_cluster(const RefineParams& P, int n_ctas, cudaStream_t stream) {
   if (n_ctas < 2 || n_ctas > 16) return cudaErrorInvalidValue;
   auto kernel = refine_inner_kernel<C, ClusterSync>;
-  cudaError_t e = cudaSuccess;
-  if (n_ctas > 8)  // above the portable cluster size
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  static launch::PerDevice non_portable;
+  int done = 0;
+  cudaError_t e = non_portable.get(&done, [&](int, int* v) {  // clusters above 8 CTAs
+    *v = 1;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  });
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -339,7 +315,8 @@ cudaError_t launch_cluster(const RefineParams& P, int n_ctas, cudaStream_t strea
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_ctas);
-  cfg.blockDim = dim3(min(CLUSTER_THREADS, threads_for((P.h * P.w + n_ctas - 1) / n_ctas)));
+  cfg.blockDim = dim3(min(ClusterSync::MAX_THREADS,
+                          threads_for((P.h * P.w + n_ctas - 1) / n_ctas)));
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -352,19 +329,19 @@ cudaError_t launch_cluster(const RefineParams& P, int n_ctas, cudaStream_t strea
 template <int C>
 cudaError_t launch_grid(const RefineParams& P, cudaStream_t stream) {
   auto kernel = refine_inner_kernel<C, GridSync>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GRID_THREADS, 0);
+  constexpr int threads = GridSync::MAX_THREADS;
+  static launch::PerDevice resident;
+  int sms = 0, per_sm = 0;
+  cudaError_t e = launch::sm_count(&sms);
+  if (e == cudaSuccess) e = launch::blocks_per_sm(kernel, threads, 0, resident, &per_sm);
   if (e != cudaSuccess) return e;
-  const int need = (P.h * P.w + GRID_THREADS - 1) / GRID_THREADS;
+  const int need = (P.h * P.w + threads - 1) / threads;
   const int grid = min(need, per_sm * sms);
   if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
   RefineParams args = P;
   void* kargs[] = {&args};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
-                                  dim3(GRID_THREADS), kargs, 0, stream);
+                                  dim3(threads), kargs, 0, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -372,7 +349,7 @@ cudaError_t launch_grid(const RefineParams& P, cudaStream_t stream) {
 enum Variant { BLOCK = 0, CLUSTER = 1, GRID = 2 };
 
 template <int C>
-cudaError_t launch(const RefineParams& P, int variant, int n_ctas, cudaStream_t stream) {
+cudaError_t launch_variant(const RefineParams& P, int variant, int n_ctas, cudaStream_t stream) {
   if (variant == BLOCK) return launch_block<C>(P, stream);
   if (variant == CLUSTER) return launch_cluster<C>(P, n_ctas, stream);
   if (variant == GRID) return launch_grid<C>(P, stream);
@@ -398,9 +375,9 @@ extern "C" int refine_inner_launch(
                  scratch, scratch + f, scratch + 2 * f, scratch + 3 * f, scratch + 4 * f,
                  scratch + 5 * f, scratch + 6 * f, scratch + 7 * f, scratch + 8 * f,
                  scratch + 9 * f, h, w, n_inner, solver_it, omega, qa, hd3, hg3,
-                 w > 1 ? ~0ULL / (unsigned long long)w + 1 : 0};
+                 launch::row_inverse(w)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c == 1) return int(launch<1>(P, variant, n_ctas, s));
-  if (c == 3) return int(launch<3>(P, variant, n_ctas, s));
+  if (c == 1) return int(launch_variant<1>(P, variant, n_ctas, s));
+  if (c == 3) return int(launch_variant<3>(P, variant, n_ctas, s));
   return int(cudaErrorInvalidValue);
 }

@@ -1,6 +1,6 @@
-// sor_rb.cuh — one pixel of a red-black SOR half-step on the 5-point TV
-// system, shared by sor_rb.cu (the stand-alone solvers) and refine_inner.cu
-// (the solver inside the fused TV inner loop).  Shifts are zero-filled, as
+// sor_rb.cuh — one pixel of a coupled red-black SOR half-step on the 5-point
+// TV system, shared by sor_rb.cu (the stand-alone coupled solver) and
+// refine_inner.cu (the solver inside the fused TV inner loop).  Shifts are zero-filled, as
 // in of_dis_tpu/ops/pallas_kernels.py::_shifts; fields are (h, w) row-major
 // and k = y * w + x.
 

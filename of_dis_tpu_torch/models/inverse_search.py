@@ -61,9 +61,9 @@ class SearchResult(NamedTuple):
 
 def _patch_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum of each patch (N, psz, psz, C) -> (N,), in the order of the CUDA
-    kernels' block_sum (csrc/gn_machine.cuh): channels per pixel, then a
-    butterfly over each warp of 32 pixels (zeros past psz^2), then the
-    warps in order."""
+    kernels' WarpLayout::sum (csrc/gn_machine.cuh): channels per pixel, then
+    a butterfly over each group of 32 pixels (zeros past psz^2), then the
+    groups in order."""
     n, psz, _, c = x.shape
     v = x[..., 0]
     for k in range(1, c):
@@ -345,10 +345,14 @@ def optimize_level(
 
 
 def _abs_weights(pweight: torch.Tensor, cfg: DISConfig) -> torch.Tensor:
-    """absw per footprint pixel: (N, psz*psz) (patchgrid.cpp:253-260)."""
-    n, psz = pweight.shape[0], pweight.shape[1]
+    """absw per footprint pixel: (N, psz*psz) (patchgrid.cpp:253-260); the
+    channels are added in order, as the level-search kernel adds them."""
+    n, psz, c = pweight.shape[0], pweight.shape[1], pweight.shape[3]
     pw = torch.clamp(pweight, min=cfg.minerrval)  # (N, psz, psz, C)
-    return (1.0 / pw.sum(dim=3)).reshape(n, psz * psz)
+    s = pw[..., 0]
+    for k in range(1, c):
+        s = s + pw[..., k]
+    return (1.0 / s).reshape(n, psz * psz)
 
 
 def level_search_reference(ima, dxa, dya, imb, pt_ref, p_init, cfg: DISConfig,

@@ -285,10 +285,13 @@ def sor_scalar_rb(du, a11, b1, wh, wv, iterations: int, omega: float):
     solver.c:428-466).  The plain version of the sor_scalar kernel
     (csrc/sor_rb.cu), rounded as the TPU kernel rounds
     (of_dis_tpu/ops/pallas_kernels.py:1357-1365): omega / A11 first, then
-    (1 - omega) du + that times B1."""
+    (1 - omega) du + that times B1.  omega / A11 is one true division, as
+    the kernel divides (a Python scalar over a tensor would multiply by the
+    tensor's reciprocal), so the two agree bit for bit."""
     h, w = du.shape
     red = _checkerboard(h, w, du.device)
-    inv = omega / (a11 + _up(wv) + _left(wh) + wv + wh)
+    omega_t = torch.full((), float(omega), dtype=du.dtype, device=du.device)
+    inv = omega_t / (a11 + _up(wv) + _left(wh) + wv + wh)
 
     def nb(x):
         return _up(wv * x) + _left(wh * x) + wv * _down(x) + wh * _right(x)

@@ -21,10 +21,10 @@ there when it is called.
   sor_coupled    csrc/sor_rb.cu         replaces of_dis_tpu/ops/pallas_kernels.py::_sor_coupled_kernel
 
 level_search and gn_search share the GN state machine (csrc/gn_machine.cuh),
-a block per patch in level_search and a warp per patch in gn_search;
-`search_route` picks one of them per level.  refine_inner launches one
-kernel body with the barrier the level needs: `refine_variant` picks a single
-CTA, a thread-block cluster or a cooperative grid from the level's shape.
+one warp per patch; `search_route` picks one of them per level.
+refine_inner and sor_scalar each launch one kernel body with the barrier the
+level needs: `refine_variant` and `sor_variant` pick a single CTA, a
+thread-block cluster or a cooperative grid from the level's shape.
 """
 
 from __future__ import annotations
@@ -362,11 +362,10 @@ def refine_inner(wx, wy, mask, derivs, n_inner: int, solver_it: int,
 # Kernels D and E: red-black SOR, scalar (stereo) and coupled (flow)
 # ---------------------------------------------------------------------------
 
-def _sor_lib(name: str, n_ptr: int):
+def _sor_lib(name: str, argtypes):
     fn = getattr(build.load("sor_rb"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -381,9 +380,66 @@ def _check_fields(name: str, fields, iterations: int) -> torch.device:
     return dev
 
 
-def sor_scalar(du, a11, b1, wh, wv, iterations: int, omega: float):
+SOR_VARIANTS = ("block", "cluster", "grid")  # codes 0, 1, 2 of sor_scalar_launch
+# csrc/sor_rb.cu keeps each thread's vertical pixel pairs ((y, x), (y + 1, x))
+# in registers, at most _SOR_PAIRS of them per thread: the block variant's
+# one CTA of up to 512 threads holds 3,584 pairs (56 x 128), a cluster of up
+# to 16 CTAs of 256 threads 28,672; the grid variant takes any level.
+_SOR_PAIRS = 7
+_SOR_MAX_CTAS = 16
+_SOR_BLOCK_CAPACITY = _SOR_PAIRS * 512
+_SOR_CLUSTER_CAPACITY = _SOR_PAIRS * 256 * _SOR_MAX_CTAS
+_SOR_CTA_PAIRS = 256  # pairs per CTA of the cluster variant (one per thread)
+# Where sor_variant moves to the next variant, in pairs per level.  On an
+# H100 the block variant won up to 40x96 (1,920 pairs) and lost to the
+# cluster from 48x112 (2,688), stereo op2's 56x128 included; the cluster
+# tied the grid at 80x160 (6,400) and lost to it from 96x192 (9,216)
+# (PERF.md).
+_SOR_BLOCK_MAX_PAIRS = 2048
+_SOR_CLUSTER_MAX_PAIRS = 6144
+
+
+def _sor_pairs(h: int, w: int) -> int:
+    return -(-h // 2) * w
+
+
+def sor_variants(h: int, w: int) -> Tuple[str, ...]:
+    """The launch variants of sor_scalar that can take an (h, w) level."""
+    pairs = _sor_pairs(h, w)
+    out = ("block",) if pairs <= _SOR_BLOCK_CAPACITY else ()
+    if pairs <= _SOR_CLUSTER_CAPACITY:
+        out += ("cluster",)
+    return out + ("grid",)
+
+
+def sor_cluster_ctas(h: int, w: int) -> int:
+    """CTAs of sor_scalar's cluster variant for an (h, w) level: 256 pixel
+    pairs each, one per thread, 2 to 16 of them (larger levels hold more
+    pairs per thread)."""
+    return min(_SOR_MAX_CTAS, max(2, -(-_sor_pairs(h, w) // _SOR_CTA_PAIRS)))
+
+
+def sor_variant(h: int, w: int) -> Tuple[str, int]:
+    """How sor_scalar launches for an (h, w) level: ("block", 1) one CTA,
+    ("cluster", n) one cluster of n CTAs, or ("grid", 0) a cooperative
+    grid: the barrier the level needs between half-steps and no wider; the
+    thresholds come from timing every variant on an H100 (PERF.md)."""
+    pairs = _sor_pairs(h, w)
+    if pairs <= _SOR_BLOCK_MAX_PAIRS:
+        return ("block", 1)
+    if pairs <= _SOR_CLUSTER_MAX_PAIRS:
+        return ("cluster", sor_cluster_ctas(h, w))
+    return ("grid", 0)
+
+
+def sor_scalar(du, a11, b1, wh, wv, iterations: int, omega: float,
+               variant: Optional[str] = None):
     """`iterations` red-black sweeps of the scalar (stereo) SOR; all fields
-    (h, w).  Returns the new du (h, w)."""
+    (h, w).  Returns the new du (h, w).  On the card the kernel launches as
+    sor_variant picks, or as `variant` (one of SOR_VARIANTS) names; every
+    variant that can take the level (sor_variants) gives the same bits."""
+    if variant is not None and variant not in SOR_VARIANTS:
+        raise ValueError(f"sor_scalar: unknown variant {variant!r}")
     if du.device.type == "cpu":
         from ..models.refine import sor_scalar_rb
 
@@ -392,12 +448,25 @@ def sor_scalar(du, a11, b1, wh, wv, iterations: int, omega: float):
         raise ValueError(f"sor_scalar: unsupported device {du.device}")
     dev = _check_fields("sor_scalar", (du, a11, b1, wh, wv), iterations)
     h, w = du.shape
+    if variant is None:
+        variant, n_ctas = sor_variant(h, w)
+    elif variant not in sor_variants(h, w):
+        raise ValueError(f"sor_scalar: variant {variant!r} cannot take a {h}x{w} level")
+    else:
+        n_ctas = sor_cluster_ctas(h, w) if variant == "cluster" else 0
     out = torch.empty_like(du)
-    fn = _sor_lib("sor_scalar_launch", 6)
+    # du while the sweeps run, (h + 2) rows of the kernel's even row stride
+    # (<= w + 3) with a zero border; the block variant keeps it in shared memory.
+    field = None if variant == "block" else torch.empty(
+        ((h + 2) * (w + 3),), dtype=torch.float32, device=dev)
+    fn = _sor_lib("sor_scalar_launch", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                  + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         rc = fn(_ptr(du), _ptr(a11), _ptr(b1), _ptr(wh), _ptr(wv), _ptr(out),
-                h, w, int(iterations), float(omega), _stream(dev))
-    _raise_on(rc, "sor_scalar")
+                None if field is None else _ptr(field),
+                h, w, int(iterations), float(omega), SOR_VARIANTS.index(variant), n_ctas,
+                _stream(dev))
+    _raise_on(rc, f"sor_scalar ({variant})")
     launches["sor_scalar"] += 1
     return out
 
@@ -415,7 +484,8 @@ def sor_coupled(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega: f
     h, w = du.shape
     du_out = torch.empty_like(du)
     dv_out = torch.empty_like(dv)
-    fn = _sor_lib("sor_coupled_launch", 11)
+    fn = _sor_lib("sor_coupled_launch", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                  + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(dev):
         rc = fn(_ptr(du), _ptr(dv), _ptr(a11), _ptr(a12), _ptr(a22), _ptr(b1), _ptr(b2),
                 _ptr(wh), _ptr(wv), _ptr(du_out), _ptr(dv_out),

@@ -69,19 +69,30 @@ def test_level_search_kernel_matches_plain(cuda, mode, c, psz, cost):
     cfg = DISConfig(mode=mode, channels=c, sc_f=1, sc_l=0, max_iter=8, min_iter=8,
                     patch_size=psz, overlap=0.4 if psz == 8 else 0.75, cost=cost).validate()
     args = _level_args(cfg, c, cuda)
-    res = kernels.level_search(*args)
-    ref = level_search_reference(*args)
-    torch.testing.assert_close(res.p, ref.p, rtol=0, atol=2e-3)
-    torch.testing.assert_close(res.pt, ref.pt, rtol=0, atol=2e-3)
-    torch.testing.assert_close(res.absw, ref.absw, rtol=1e-2, atol=1e-4)
-    assert (res.converged == ref.converged).float().mean() >= 0.99
+    _assert_search_equal(kernels.level_search(*args), level_search_reference(*args))
 
 
 def _assert_search_equal(res, ref):
-    """gn_search and its plain version sum and divide in one order: equal bits."""
-    for name in ("p", "pt", "pweight", "converged", "iters"):
+    """A search kernel and its plain version sum and divide in one order:
+    equal bits (the weights are pweight for gn_search, absw for
+    level_search)."""
+    for name in ("p", "pt", "pweight", "absw", "converged", "iters"):
         a, b = getattr(res, name), getattr(ref, name)
+        if a is None and b is None:
+            continue
         assert torch.equal(a, b), (name, float((a.float() - b.float()).abs().max()))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 7, 33])
+@pytest.mark.parametrize("psz", [8, 12])
+def test_level_search_kernel_patch_counts(cuda, n, psz):
+    """N = 1 and N not a multiple of the kernel's warps (patches) per block."""
+    cfg = DISConfig(sc_f=1, sc_l=0, max_iter=8, min_iter=2, patch_size=psz,
+                    overlap=0.4 if psz == 8 else 0.75).validate()
+    args = list(_level_args(cfg, 1, cuda))
+    assert args[4].shape[0] >= n
+    args[4], args[5] = args[4][-n:].contiguous(), args[5][-n:].contiguous()
+    _assert_search_equal(kernels.level_search(*args), level_search_reference(*args))
 
 
 @pytest.mark.parametrize("mode,c,psz,cost,camlr", [
@@ -140,6 +151,35 @@ def test_sor_kernels_match_plain(cuda, h, w):
     rdu, rdv = sor_coupled_rb(*[s[k] for k in names], 3, 1.6)
     torch.testing.assert_close(du, rdu, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(dv, rdv, rtol=1e-5, atol=1e-5)
+
+
+def _sor_threshold_shapes():
+    """(h, w) just below and just above each pair count (ceil(h / 2) * w)
+    where sor_variant changes its choice, with w = 64; h odd above, so the
+    last row of pairs has no bottom pixel."""
+    shapes = []
+    for pairs in (kernels._SOR_BLOCK_MAX_PAIRS, kernels._SOR_CLUSTER_MAX_PAIRS):
+        shapes += [(2 * (pairs // 64), 64), (2 * (pairs // 64) + 1, 64)]
+    return shapes
+
+
+@pytest.mark.parametrize("h,w", _sor_threshold_shapes() + [(14, 32), (28, 64), (56, 128),
+                                                          (448, 1024)])
+def test_sor_scalar_variants_bit_equal(cuda, h, w):
+    """Every variant gives the same bits, and so does the plain version,
+    which divides and sums in the kernel's order."""
+    s = _sor_system(h, w, cuda, seed=h * w)
+    args = [s[k] for k in ("du", "a11", "b1", "wh", "wv")] + [3, 1.6]
+    outs = {v: kernels.sor_scalar(*args, variant=v) for v in kernels.sor_variants(h, w)}
+    picked = kernels.sor_scalar(*args)
+    for v, out in outs.items():
+        assert torch.equal(out, picked), v
+    ref = sor_scalar_rb(*args)
+    torch.testing.assert_close(picked, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(picked, ref), float((picked - ref).abs().max())
+    for v in set(kernels.SOR_VARIANTS) - set(outs):
+        with pytest.raises(ValueError):
+            kernels.sor_scalar(*args, variant=v)
 
 
 def _refine_args(h, w, c, n_inner, device):

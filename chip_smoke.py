@@ -11,9 +11,11 @@ RGB, op3 gray, op4 gray; dis_stereo: op2 gray and RGB), each with the
 launch counters reset just before its run and read just after.  Both
 search kernels (level_search, gn_search) must equal their plain versions
 exactly on every call; refine_inner and sor_scalar run every call through
-each launch variant (block, cluster, grid), which must give the same bits,
-and print each variant's time, the one refine_variant / sor_variant picks
-and a fit of each variant's cost per phase.
+each launch variant (block, cluster, grid), and sor_coupled (on no path)
+seeded fields at op2's level shapes and up to 448x1024; the variants must
+give the same bits as one another and as their plain versions, and each
+prints its variants' times, the one refine_variant / sor_variant picks and
+a fit of each variant's cost per phase.
 It checks the outputs against the reference binaries' goldens, the port's CPU path and
 a second run, times pairs, profiles the device, runs the CLI (flow and
 stereo), and prints one JSON line per phase.  The line before the last
@@ -430,8 +432,7 @@ def main() -> int:
         uu, vv = outs[picked[0]]
         bit_equal = all(torch.equal(o[0], uu) and torch.equal(o[1], vv) for o in outs.values())
         err = max(float((uu - ru).abs().max()), float((vv - rv).abs().max()))
-        ok = bool(bit_equal and torch.allclose(uu, ru, rtol=1e-4, atol=1e-4)
-                  and torch.allclose(vv, rv, rtol=1e-4, atol=1e-4))
+        ok = bool(bit_equal and torch.equal(uu, ru) and torch.equal(vv, rv))
         barriers = int(a[4]) * (2 + 2 * int(a[5])) - 1
         variant_ms = {v: gpu_ms(torch, lambda v=v: kernels.refine_inner(*a, variant=v), 10)
                       for v in variants}
@@ -486,47 +487,63 @@ def main() -> int:
         return (f(0.3), f(0.3), f(0.5, 2.0).abs(), f(0.2), f(0.5, 2.0).abs(), f(1.0), f(1.0),
                 wh, wv)
 
-    def sor_coupled_case(case, a):
-        out, ref = kernels.sor_coupled(*a), sor_coupled_rb(*a)
-        torch.cuda.synchronize()
-        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-        ok = all(bool(torch.allclose(o, r, rtol=1e-5, atol=1e-5)) for o, r in zip(out, ref))
-        h, w = a[0].shape
-        line = dict(case=case, hw=[h, w], iterations=int(a[-2]), max_abs_err=err, ok=ok)
-        ms = gpu_ms(torch, lambda: kernels.sor_coupled(*a), 50)
-        pms = gpu_ms(torch, lambda: sor_coupled_rb(*a), 5)
-        b, by = bound_ms(*sor_work(2, h, w, int(a[-2])))
-        line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
-        emit("kernel sor_coupled", **line)
-        require(ok, f"sor_coupled disagrees with its plain version: {line}")
-        return line
+    sor_kernels = {1: ("sor_scalar", sor_scalar_rb), 2: ("sor_coupled", sor_coupled_rb)}
 
-    def sor_scalar_case(case, a, timed):
-        """Every launch variant that can take the call's shape: bit-equal to
-        one another and to the plain version (which divides and sums in the
-        kernel's order); each variant's time."""
+    def sor_case(nop, case, a, timed):
+        """Every launch variant of the nop solver (1 sor_scalar, 2
+        sor_coupled) that can take the call's shape: bit-equal to one another
+        and to the plain version (which divides and sums in the kernel's
+        order); each variant's time."""
+        name, plain = sor_kernels[nop]
+
+        def run(fn, **kw):
+            out = fn(*a, **kw)
+            return out if nop == 2 else (out,)
+
         h, w = a[0].shape
-        picked = kernels.sor_variant(h, w)
-        variants = kernels.sor_variants(h, w)
-        outs = {v: kernels.sor_scalar(*a, variant=v) for v in variants}
-        ref = sor_scalar_rb(*a)
+        picked = kernels.sor_variant(h, w, nop)
+        variants = kernels.sor_variants(h, w, nop)
+        outs = {v: run(getattr(kernels, name), variant=v) for v in variants}
+        ref = run(plain)
         torch.cuda.synchronize()
         out = outs[picked[0]]
-        bit_equal = all(torch.equal(o, out) for o in outs.values())
-        err = float((out - ref).abs().max())
-        ok = bool(bit_equal and torch.equal(out, ref))
-        line = dict(case=case, hw=[h, w], iterations=int(a[5]), picked=list(picked),
+        bit_equal = all(all(map(torch.equal, o, out)) for o in outs.values())
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        ok = bool(bit_equal and all(map(torch.equal, out, ref)))
+        line = dict(case=case, hw=[h, w], iterations=int(a[-2]), picked=list(picked),
                     variants_bit_equal=bit_equal, max_abs_err=err, ok=ok,
-                    variant_ms={v: gpu_ms(torch, lambda v=v: kernels.sor_scalar(*a, variant=v), 20)
+                    variant_ms={v: gpu_ms(torch, lambda v=v: run(getattr(kernels, name),
+                                                                variant=v), 20)
                                 for v in variants})
         if timed:
-            ms = gpu_ms(torch, lambda: kernels.sor_scalar(*a), 50)
-            pms = gpu_ms(torch, lambda: sor_scalar_rb(*a), 5)
-            b, by = bound_ms(*sor_work(1, h, w, int(a[5])))
+            ms = gpu_ms(torch, lambda: run(getattr(kernels, name)), 50)
+            pms = gpu_ms(torch, lambda: run(plain), 5)
+            b, by = bound_ms(*sor_work(nop, h, w, int(a[-2])))
             line.update(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
-        emit("kernel sor_scalar", **line)
-        require(ok, f"sor_scalar variants disagree or leave their plain version: {line}")
+        emit(f"kernel {name}", **line)
+        require(ok, f"{name} variants disagree or leave their plain version: {line}")
         return line
+
+    def sor_phase_costs(nop, cases):
+        """What a half-step costs in each variant: iterations 1, 3 and 9 (2,
+        6, 18 half-steps, each with the barrier before it) fit to a fixed
+        cost per launch plus a cost per half-step."""
+        name = sor_kernels[nop][0]
+        for case, a in cases.items():
+            h, w = a[0].shape
+            fit = {}
+            for v in kernels.sor_variants(h, w, nop):
+                t = {it: gpu_ms(torch, lambda v=v, it=it: getattr(kernels, name)(
+                    *a[:-2], it, a[-1], variant=v), 10) * 1e3 for it in (1, 3, 9)}
+                per_half, fixed = np.polyfit([2.0 * it for it in t], list(t.values()), 1)
+                fit[v] = dict(us_per_half_step=float(per_half), us_fixed=float(fixed),
+                              us_at_iterations={str(it): u for it, u in t.items()})
+            emit(f"{name} phase costs", case=case, hw=[h, w],
+                 picked=list(kernels.sor_variant(h, w, nop)), per_variant=fit)
+
+    # Between and above op2's level shapes, where sor_variant's thresholds lie.
+    threshold_shapes = ((40, 96), (48, 112), (80, 160), (96, 192), (112, 256), (224, 512),
+                        (448, 1024))
 
     # sor_scalar: every call of both stereo paths (15 per pair: levels 5, 4, 3
     # with n_inner 6, 5, 4) and 448x1024, through every variant; ms,
@@ -540,7 +557,7 @@ def main() -> int:
         levels = [sl for sl in range(cfg.sc_f, cfg.sc_l - 1, -1)
                   for _ in range(cfg.tv_innerit * (sl + 1))]
         for sl, (a, _) in zip(levels, calls[name]["sor_scalar"]):
-            line = sor_scalar_case(f"{name} level {sl}", a, name == "stereo gray")
+            line = sor_case(1, f"{name} level {sl}", a, name == "stereo gray")
             ss["max_abs_err"] = max(ss["max_abs_err"], line["max_abs_err"])
             if name == "stereo gray":
                 fit_cases.setdefault(f"{name} level {sl}", a)
@@ -550,42 +567,42 @@ def main() -> int:
                 ss["level_ms"][str(sl)] = ss["level_ms"].get(str(sl), 0.0) + line["ms"]
                 for v, t in line["variant_ms"].items():
                     ss["variant_ms"][v] = ss["variant_ms"].get(v, 0.0) + t
-    # Between and above stereo op2's shapes, where sor_variant's thresholds lie.
-    for h, w in ((40, 96), (48, 112), (80, 160), (96, 192), (112, 256), (224, 512),
-                 (448, 1024)):
+    for h, w in threshold_shapes:
         s = sor_system(h, w, h * w)
         fit_cases[f"random {h}x{w}"] = (s[0], s[2], s[5], s[7], s[8], 3, 1.6)
-    line = sor_scalar_case("random 448x1024", fit_cases["random 448x1024"], True)
+    line = sor_case(1, "random 448x1024", fit_cases["random 448x1024"], True)
     ss["max_abs_err"] = max(ss["max_abs_err"], line["max_abs_err"])
     rows["sor_scalar"] = ss
-    # What a half-step costs in each variant: iterations 1, 3 and 9 (2, 6, 18
-    # half-steps, each with the barrier before it) fit to a fixed cost per
-    # launch plus a cost per half-step.
-    for name, a in fit_cases.items():
-        h, w = a[0].shape
-        fit = {}
-        for v in kernels.sor_variants(h, w):
-            t = {it: gpu_ms(torch, lambda v=v, it=it: kernels.sor_scalar(
-                *a[:5], it, a[6], variant=v), 10) * 1e3 for it in (1, 3, 9)}
-            per_half, fixed = np.polyfit([2.0 * it for it in t], list(t.values()), 1)
-            fit[v] = dict(us_per_half_step=float(per_half), us_fixed=float(fixed),
-                          us_at_iterations={str(it): u for it, u in t.items()})
-        emit("sor_scalar phase costs", case=name, hw=[h, w],
-             picked=list(kernels.sor_variant(h, w)), per_variant=fit)
+    sor_phase_costs(1, fit_cases)
 
-    # sor_coupled: on no path (flow levels run it inside refine_inner); at
-    # op2's level shapes and 448x1024 on seeded fields.
+    # sor_coupled: on no path (flow levels run it inside refine_inner); on
+    # seeded fields at op2's level shapes (levels 5, 4, 3 at 1024x436), at
+    # op4's level 0 (448x1024) and between them, through every variant; ms,
+    # plain_ms and bound_ms of the kernels line sum op2's three shapes, and
+    # variant_ms gives each variant's ms at each of them.
     sc = dict(source="sor_rb.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:58",
-              per=None, max_abs_err=0.0,
-              ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None)
-    for h, w in ((14, 32), (28, 64), (56, 128), (448, 1024)):
-        line = sor_coupled_case(f"random {h}x{w}", sor_system(h, w, h + w) + (3, 1.6))
+              per=None, max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
+              level_ms={}, variant_ms={})
+    coupled_cases = {f"op2 level {sl} shape": (h, w)
+                     for sl, (h, w) in ((5, (14, 32)), (4, (28, 64)), (3, (56, 128)))}
+    # and where sor_variant(h, w, 2)'s own thresholds lie (1,536 and 4,096 pairs)
+    coupled_cases.update({f"random {h}x{w}": (h, w) for h, w in
+                          ((32, 64), (40, 64), (48, 64), (64, 128), (72, 128)) + threshold_shapes})
+    fit_cases = {}
+    for case, (h, w) in coupled_cases.items():
+        a = fit_cases[case] = sor_system(h, w, h + w) + (3, 1.6)
+        line = sor_case(2, case, a, case.startswith("op2") or h == 448)
         sc["max_abs_err"] = max(sc["max_abs_err"], line["max_abs_err"])
-        if h < 448:
+        if case.startswith("op2"):
+            sl = case.split()[2]
             for key in ("ms", "plain_ms", "bound_ms"):
                 sc[key] += line[key]
             sc["bound_by"] = line["bound_by"]
+            sc["level_ms"][sl] = line["ms"]
+            for v, t in line["variant_ms"].items():
+                sc["variant_ms"].setdefault(v, {})[sl] = t
     rows["sor_coupled"] = sc
+    sor_phase_costs(2, fit_cases)
 
     # ---- main path: each path through the kernels, counted ----
     def golden(case):
@@ -725,7 +742,8 @@ def main() -> int:
     emit("kernels", note="launches, ms, plain_ms and bound_ms are per pair of the path "
          "named in `per` (the sum over its launches; level_ms splits ms by pyramid level, "
          "variant_ms gives it for each launch variant); "
-         "sor_coupled is on no path and its times sum one launch at each op2 level shape",
+         "sor_coupled is on no path: its times sum one launch at each op2 level shape, "
+         "and its variant_ms gives each variant's ms at each of those levels",
          per={k: rows[k]["per"] for k in KERNELS}, launches_per_path=counts,
          pair_ms_median=latency, checks={k: "ok" for k in KERNELS},
          total_seconds=time.perf_counter() - T_START)

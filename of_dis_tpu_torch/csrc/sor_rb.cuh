@@ -1,8 +1,9 @@
 // sor_rb.cuh — one pixel of a coupled red-black SOR half-step on the 5-point
-// TV system, shared by sor_rb.cu (the stand-alone coupled solver) and
-// refine_inner.cu (the solver inside the fused TV inner loop).  Shifts are zero-filled, as
-// in of_dis_tpu/ops/pallas_kernels.py::_shifts; fields are (h, w) row-major
-// and k = y * w + x.
+// TV system: in the pointer form refine_inner.cu (the solver inside the fused
+// TV inner loop) uses, and in the value form of sor_rb.cu's coupled solver,
+// which keeps each pixel's system in registers.  Both round alike.  Shifts
+// are zero-filled, as in of_dis_tpu/ops/pallas_kernels.py::_shifts; fields
+// are (h, w) row-major and k = y * w + x.
 
 #pragma once
 
@@ -33,6 +34,19 @@ __device__ __forceinline__ void coupled_update(const float* wh, const float* wv,
   du_n = (1.f - omega) * du + inv11 * (B1 - a12 * dv);
   const float B2 = b2 + nb(wh, wv, dv_f, y, x, k, h, w);
   dv_n = (1.f - omega) * dv + inv22 * (B2 - a12 * du_n);
+}
+
+// The same update from values (sor_rb.cu): du, dv the pixel's fields;
+// nb_u, nb_v the neighbour sums of du and dv, in nb's order.  coupled_du
+// first, then coupled_dv with its result.
+__device__ __forceinline__ float coupled_du(float du, float dv, float nb_u, float b1, float a12,
+                                            float inv11, float omega) {
+  return (1.f - omega) * du + inv11 * ((b1 + nb_u) - a12 * dv);
+}
+
+__device__ __forceinline__ float coupled_dv(float dv, float du_n, float nb_v, float b2, float a12,
+                                            float inv22, float omega) {
+  return (1.f - omega) * dv + inv22 * ((b2 + nb_v) - a12 * du_n);
 }
 
 }  // namespace sor

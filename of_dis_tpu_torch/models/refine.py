@@ -37,6 +37,12 @@ EPS_GRAD = 0.001 * 0.001
 EPS_SMOOTH = 0.001 * 0.001
 
 
+def _over(c: float, t: torch.Tensor) -> torch.Tensor:
+    """c / t rounded as one division, as the kernels divide (PyTorch takes a
+    Python scalar over a tensor as reciprocal(t) * c, which rounds twice)."""
+    return torch.full((), float(c), dtype=t.dtype, device=t.device) / t
+
+
 # ---------------------------------------------------------------------------
 # Shifts with zero fill (borders carry zero weights by construction)
 # ---------------------------------------------------------------------------
@@ -159,12 +165,13 @@ def compute_smoothness(uu, vv, quarter_alpha: float):
     """TV diffusivity edge weights (compute_smoothness, opticalflow_aux.c:119-165).
 
     Returns (horiz, vert): horiz[j,i] couples (j,i)<->(j,i+1) (last col 0),
-    vert[j,i] couples (j,i)<->(j+1,i) (last row 0)."""
+    vert[j,i] couples (j,i)<->(j+1,i) (last row 0).  qa / sqrt(...) is one
+    true division, as in the TPU and CUDA kernels."""
     ux = _conv_h(uu, DERIV3)
     uy = _conv_v(uu, DERIV3)
     vx = _conv_h(vv, DERIV3)
     vy = _conv_v(vv, DERIV3)
-    s = quarter_alpha / torch.sqrt(ux * ux + uy * uy + vx * vx + vy * vy + EPS_SMOOTH)
+    s = _over(quarter_alpha, torch.sqrt(ux * ux + uy * uy + vx * vx + vy * vy + EPS_SMOOTH))
     horiz = s + _right(s)
     horiz[:, -1] = 0.0
     vert = s + _down(s)
@@ -182,6 +189,15 @@ def sub_laplacian(b, src, wh, wv):
 # ---------------------------------------------------------------------------
 # Data term
 # ---------------------------------------------------------------------------
+
+def _channel_sum(x: torch.Tensor) -> torch.Tensor:
+    """x summed over its last (channel) axis in channel order, as the
+    refine-inner kernel adds."""
+    s = x[..., 0]
+    for c in range(1, x.shape[-1]):
+        s = s + x[..., c]
+    return s
+
 
 def compute_data(du, dv, mask, derivs, half_delta_over3: float,
                  half_gamma_over3: float, nop: int):
@@ -205,14 +221,14 @@ def compute_data(du, dv, mask, derivs, half_delta_over3: float,
         if c == 1:
             denom = torch.sqrt(3.0 * t * t / n + EPS_COLOR)
         else:
-            denom = torch.sqrt((t * t / n).sum(dim=-1, keepdim=True) + EPS_COLOR)
+            denom = torch.sqrt(_channel_sum(t * t / n)[..., None] + EPS_COLOR)
         coef = (m * half_delta_over3 / denom) / n  # (h, w, C)
-        a11 = a11 + (coef * ix * ix).sum(dim=-1)
-        b1 = b1 - (coef * iz * ix).sum(dim=-1)
+        a11 = a11 + _channel_sum(coef * ix * ix)
+        b1 = b1 - _channel_sum(coef * iz * ix)
         if nop == 2:
-            a12 = a12 + (coef * ix * iy).sum(dim=-1)
-            a22 = a22 + (coef * iy * iy).sum(dim=-1)
-            b2 = b2 - (coef * iz * iy).sum(dim=-1)
+            a12 = a12 + _channel_sum(coef * ix * iy)
+            a22 = a22 + _channel_sum(coef * iy * iy)
+            b2 = b2 - _channel_sum(coef * iz * iy)
 
     # --- gradient constancy ---
     n1 = ixx * ixx + ixy * ixy + DATANORM
@@ -223,17 +239,17 @@ def compute_data(du, dv, mask, derivs, half_delta_over3: float,
         denom = torch.sqrt(3.0 * t1 * t1 / n1 + 3.0 * t2 * t2 / n2 + EPS_GRAD)
     else:
         denom = torch.sqrt(
-            (t1 * t1 / n1 + t2 * t2 / n2).sum(dim=-1, keepdim=True) + EPS_GRAD
+            _channel_sum(t1 * t1 / n1 + t2 * t2 / n2)[..., None] + EPS_GRAD
         )
     t = m * half_gamma_over3 / denom
     c1 = t / n1
     c2 = t / n2
-    a11 = a11 + (c1 * ixx * ixx + c2 * ixy * ixy).sum(dim=-1)
-    b1 = b1 - (c1 * ixx * ixz + c2 * ixy * iyz).sum(dim=-1)
+    a11 = a11 + _channel_sum(c1 * ixx * ixx + c2 * ixy * ixy)
+    b1 = b1 - _channel_sum(c1 * ixx * ixz + c2 * ixy * iyz)
     if nop == 2:
-        a12 = a12 + (c1 * ixx * ixy + c2 * ixy * iyy).sum(dim=-1)
-        a22 = a22 + (c2 * iyy * iyy + c1 * ixy * ixy).sum(dim=-1)
-        b2 = b2 - (c2 * iyy * iyz + c1 * ixy * ixz).sum(dim=-1)
+        a12 = a12 + _channel_sum(c1 * ixx * ixy + c2 * ixy * iyy)
+        a22 = a22 + _channel_sum(c2 * iyy * iyy + c1 * ixy * ixy)
+        b2 = b2 - _channel_sum(c2 * iyy * iyz + c1 * ixy * ixz)
 
     if c == 1:
         # x3 so smoothing weights match the RGB path (opticalflow_aux.c:420-427).
@@ -255,22 +271,25 @@ def sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega
     """Coupled red-black SOR on the 5-point system (numeric spec:
     sor_coupled_slow_but_readable, solver.c:19-72).  Within a colour, du is
     updated first and dv uses the new du, exactly like the reference.  The
-    plain version of the sor_coupled kernel (csrc/sor_rb.cu)."""
+    plain version of the sor_coupled kernel (csrc/sor_rb.cu), rounded as the
+    TPU kernel rounds (of_dis_tpu/ops/pallas_kernels.py:69-82): the weights
+    summed first, then omega / (a11 + sum) and omega / (a22 + sum), each one
+    true division, so the two agree bit for bit."""
     h, w = du.shape
     red = _checkerboard(h, w, du.device)
     sum_dpsis = _up(wv) + _left(wh) + wv + wh
-    A11 = a11 + sum_dpsis
-    A22 = a22 + sum_dpsis
+    inv11 = _over(omega, a11 + sum_dpsis)
+    inv22 = _over(omega, a22 + sum_dpsis)
 
     def nb(x):
         return _up(wv * x) + _left(wh * x) + wv * _down(x) + wh * _right(x)
 
     def half_step(du, dv, color_mask):
         B1 = b1 + nb(du)
-        du_new = (1.0 - omega) * du + (omega / A11) * (B1 - a12 * dv)
+        du_new = (1.0 - omega) * du + inv11 * (B1 - a12 * dv)
         du = torch.where(color_mask, du_new, du)
         B2 = b2 + nb(dv)
-        dv_new = (1.0 - omega) * dv + (omega / A22) * (B2 - a12 * du)
+        dv_new = (1.0 - omega) * dv + inv22 * (B2 - a12 * du)
         dv = torch.where(color_mask, dv_new, dv)
         return du, dv
 
@@ -286,12 +305,10 @@ def sor_scalar_rb(du, a11, b1, wh, wv, iterations: int, omega: float):
     (csrc/sor_rb.cu), rounded as the TPU kernel rounds
     (of_dis_tpu/ops/pallas_kernels.py:1357-1365): omega / A11 first, then
     (1 - omega) du + that times B1.  omega / A11 is one true division, as
-    the kernel divides (a Python scalar over a tensor would multiply by the
-    tensor's reciprocal), so the two agree bit for bit."""
+    the kernel divides, so the two agree bit for bit."""
     h, w = du.shape
     red = _checkerboard(h, w, du.device)
-    omega_t = torch.full((), float(omega), dtype=du.dtype, device=du.device)
-    inv = omega_t / (a11 + _up(wv) + _left(wh) + wv + wh)
+    inv = _over(omega, a11 + _up(wv) + _left(wh) + wv + wh)
 
     def nb(x):
         return _up(wv * x) + _left(wh * x) + wv * _down(x) + wh * _right(x)

@@ -22,9 +22,10 @@ there when it is called.
 
 level_search and gn_search share the GN state machine (csrc/gn_machine.cuh),
 one warp per patch; `search_route` picks one of them per level.
-refine_inner and sor_scalar each launch one kernel body with the barrier the
-level needs: `refine_variant` and `sor_variant` pick a single CTA, a
-thread-block cluster or a cooperative grid from the level's shape.
+refine_inner and the two SOR solvers (sor_scalar, sor_coupled) each launch
+one kernel body with the barrier the level needs: `refine_variant` and
+`sor_variant` pick a single CTA, a thread-block cluster or a cooperative
+grid from the level's shape.
 """
 
 from __future__ import annotations
@@ -380,56 +381,95 @@ def _check_fields(name: str, fields, iterations: int) -> torch.device:
     return dev
 
 
-SOR_VARIANTS = ("block", "cluster", "grid")  # codes 0, 1, 2 of sor_scalar_launch
+SOR_VARIANTS = ("block", "cluster", "grid")  # codes 0, 1, 2 of both sor_*_launch
 # csrc/sor_rb.cu keeps each thread's vertical pixel pairs ((y, x), (y + 1, x))
-# in registers, at most _SOR_PAIRS of them per thread: the block variant's
-# one CTA of up to 512 threads holds 3,584 pairs (56 x 128), a cluster of up
-# to 16 CTAs of 256 threads 28,672; the grid variant takes any level.
-_SOR_PAIRS = 7
+# in registers, at most _SOR_PAIRS[nop] of them per thread (a scalar pixel
+# keeps 6 values, a coupled one 9): the block variant's one CTA of up to 512
+# threads holds 3,584 scalar pairs (56 x 128) or 1,536 coupled ones, a
+# cluster of up to 16 CTAs of 256 threads 28,672 or 12,288; the grid variant
+# takes any level.
+_SOR_PAIRS = {1: 7, 2: 3}
+_SOR_BLOCK_THREADS = 512
+_SOR_CTA_THREADS = 256
 _SOR_MAX_CTAS = 16
-_SOR_BLOCK_CAPACITY = _SOR_PAIRS * 512
-_SOR_CLUSTER_CAPACITY = _SOR_PAIRS * 256 * _SOR_MAX_CTAS
-_SOR_CTA_PAIRS = 256  # pairs per CTA of the cluster variant (one per thread)
-# Where sor_variant moves to the next variant, in pairs per level.  On an
-# H100 the block variant won up to 40x96 (1,920 pairs) and lost to the
-# cluster from 48x112 (2,688), stereo op2's 56x128 included; the cluster
-# tied the grid at 80x160 (6,400) and lost to it from 96x192 (9,216)
-# (PERF.md).
-_SOR_BLOCK_MAX_PAIRS = 2048
-_SOR_CLUSTER_MAX_PAIRS = 6144
+# Where sor_variant moves to the next variant, in pairs per level: (last
+# pairs of the block, last of the cluster).  On an H100 the scalar block won
+# up to 40x96 (1,920 pairs) and lost to the cluster from 48x112 (2,688),
+# stereo op2's 56x128 included; the scalar cluster tied the grid at 80x160
+# (6,400) and lost to it from 96x192 (9,216).  The coupled block beat the
+# cluster at every level it can take (up to 48x64, 1,536 pairs); the
+# coupled cluster won up to 64x128 (4,096, one pair a thread) and lost to
+# the grid from 72x128 (4,608) (PERF.md).
+_SOR_MAX_PAIRS = {1: (2048, 6144), 2: (1536, 4096)}
 
 
 def _sor_pairs(h: int, w: int) -> int:
     return -(-h // 2) * w
 
 
-def sor_variants(h: int, w: int) -> Tuple[str, ...]:
-    """The launch variants of sor_scalar that can take an (h, w) level."""
-    pairs = _sor_pairs(h, w)
-    out = ("block",) if pairs <= _SOR_BLOCK_CAPACITY else ()
-    if pairs <= _SOR_CLUSTER_CAPACITY:
+def sor_variants(h: int, w: int, nop: int = 1) -> Tuple[str, ...]:
+    """The launch variants of the nop solver (1 sor_scalar, 2 sor_coupled)
+    that can take an (h, w) level."""
+    pairs, per_thread = _sor_pairs(h, w), _SOR_PAIRS[nop]
+    out = ("block",) if pairs <= per_thread * _SOR_BLOCK_THREADS else ()
+    if pairs <= per_thread * _SOR_CTA_THREADS * _SOR_MAX_CTAS:
         out += ("cluster",)
     return out + ("grid",)
 
 
-def sor_cluster_ctas(h: int, w: int) -> int:
-    """CTAs of sor_scalar's cluster variant for an (h, w) level: 256 pixel
-    pairs each, one per thread, 2 to 16 of them (larger levels hold more
-    pairs per thread)."""
-    return min(_SOR_MAX_CTAS, max(2, -(-_sor_pairs(h, w) // _SOR_CTA_PAIRS)))
+def sor_cluster_ctas(h: int, w: int, nop: int = 1) -> int:
+    """CTAs of the nop solver's cluster variant for an (h, w) level: 256
+    pixel pairs each, one per thread, 2 to 16 of them (larger levels hold
+    more pairs per thread).  Raises if the cluster cannot take the level."""
+    if "cluster" not in sor_variants(h, w, nop):
+        raise ValueError(f"sor: a {h}x{w} level is too large for the nop={nop} cluster")
+    return min(_SOR_MAX_CTAS, max(2, -(-_sor_pairs(h, w) // _SOR_CTA_THREADS)))
 
 
-def sor_variant(h: int, w: int) -> Tuple[str, int]:
-    """How sor_scalar launches for an (h, w) level: ("block", 1) one CTA,
-    ("cluster", n) one cluster of n CTAs, or ("grid", 0) a cooperative
-    grid: the barrier the level needs between half-steps and no wider; the
-    thresholds come from timing every variant on an H100 (PERF.md)."""
+def sor_variant(h: int, w: int, nop: int = 1) -> Tuple[str, int]:
+    """How the nop solver (1 sor_scalar, 2 sor_coupled) launches for an (h,
+    w) level: ("block", 1) one CTA, ("cluster", n) one cluster of n CTAs, or
+    ("grid", 0) a cooperative grid: the barrier the level needs between
+    half-steps and no wider; the thresholds come from timing every variant
+    on an H100 (PERF.md)."""
     pairs = _sor_pairs(h, w)
-    if pairs <= _SOR_BLOCK_MAX_PAIRS:
+    block_max, cluster_max = _SOR_MAX_PAIRS[nop]
+    if pairs <= block_max:
         return ("block", 1)
-    if pairs <= _SOR_CLUSTER_MAX_PAIRS:
-        return ("cluster", sor_cluster_ctas(h, w))
+    if pairs <= cluster_max:
+        return ("cluster", sor_cluster_ctas(h, w, nop))
     return ("grid", 0)
+
+
+def _sor_launch(name: str, nop: int, fields, iterations: int, omega: float,
+                variant: Optional[str]):
+    """Launch csrc/sor_rb.cu's nop solver on the card: fields are its
+    inputs, (du[, dv], system..., wh, wv); returns its nop outputs."""
+    dev = _check_fields(name, fields, iterations)
+    h, w = fields[0].shape
+    if variant is None:
+        variant, n_ctas = sor_variant(h, w, nop)
+    elif variant not in sor_variants(h, w, nop):
+        raise ValueError(f"{name}: variant {variant!r} cannot take a {h}x{w} level")
+    else:
+        n_ctas = sor_cluster_ctas(h, w, nop) if variant == "cluster" else 0
+    outs = [torch.empty_like(fields[0]) for _ in range(nop)]
+    # du (and dv) while the sweeps run, each (h + 2) rows of the kernel's even
+    # row stride (<= w + 3) with a zero border; the block variant keeps them
+    # in shared memory.
+    field = None if variant == "block" else torch.empty(
+        (nop * (h + 2) * (w + 3),), dtype=torch.float32, device=dev)
+    fn = _sor_lib(f"{name}_launch", [ctypes.c_void_p] * (len(fields) + nop + 1)
+                  + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        rc = fn(*[_ptr(t) for t in fields], *[_ptr(t) for t in outs],
+                None if field is None else _ptr(field),
+                h, w, int(iterations), float(omega), SOR_VARIANTS.index(variant), n_ctas,
+                _stream(dev))
+    _raise_on(rc, f"{name} ({variant})")
+    launches[name] += 1
+    return outs
 
 
 def sor_scalar(du, a11, b1, wh, wv, iterations: int, omega: float,
@@ -446,50 +486,23 @@ def sor_scalar(du, a11, b1, wh, wv, iterations: int, omega: float,
         return sor_scalar_rb(du, a11, b1, wh, wv, iterations, omega)
     if du.device.type != "cuda":
         raise ValueError(f"sor_scalar: unsupported device {du.device}")
-    dev = _check_fields("sor_scalar", (du, a11, b1, wh, wv), iterations)
-    h, w = du.shape
-    if variant is None:
-        variant, n_ctas = sor_variant(h, w)
-    elif variant not in sor_variants(h, w):
-        raise ValueError(f"sor_scalar: variant {variant!r} cannot take a {h}x{w} level")
-    else:
-        n_ctas = sor_cluster_ctas(h, w) if variant == "cluster" else 0
-    out = torch.empty_like(du)
-    # du while the sweeps run, (h + 2) rows of the kernel's even row stride
-    # (<= w + 3) with a zero border; the block variant keeps it in shared memory.
-    field = None if variant == "block" else torch.empty(
-        ((h + 2) * (w + 3),), dtype=torch.float32, device=dev)
-    fn = _sor_lib("sor_scalar_launch", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                  + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        rc = fn(_ptr(du), _ptr(a11), _ptr(b1), _ptr(wh), _ptr(wv), _ptr(out),
-                None if field is None else _ptr(field),
-                h, w, int(iterations), float(omega), SOR_VARIANTS.index(variant), n_ctas,
-                _stream(dev))
-    _raise_on(rc, f"sor_scalar ({variant})")
-    launches["sor_scalar"] += 1
-    return out
+    return _sor_launch("sor_scalar", 1, (du, a11, b1, wh, wv), iterations, omega, variant)[0]
 
 
-def sor_coupled(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega: float):
+def sor_coupled(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega: float,
+                variant: Optional[str] = None):
     """`iterations` red-black sweeps of the coupled (flow) SOR; all fields
-    (h, w).  Returns the new (du, dv)."""
+    (h, w).  Returns the new (du, dv).  On the card the kernel launches as
+    sor_variant(h, w, nop=2) picks, or as `variant` (one of SOR_VARIANTS)
+    names; every variant that can take the level (sor_variants(h, w, 2))
+    gives the same bits."""
+    if variant is not None and variant not in SOR_VARIANTS:
+        raise ValueError(f"sor_coupled: unknown variant {variant!r}")
     if du.device.type == "cpu":
         from ..models.refine import sor_coupled_rb
 
         return sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations, omega)
     if du.device.type != "cuda":
         raise ValueError(f"sor_coupled: unsupported device {du.device}")
-    dev = _check_fields("sor_coupled", (du, dv, a11, a12, a22, b1, b2, wh, wv), iterations)
-    h, w = du.shape
-    du_out = torch.empty_like(du)
-    dv_out = torch.empty_like(dv)
-    fn = _sor_lib("sor_coupled_launch", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
-                  + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        rc = fn(_ptr(du), _ptr(dv), _ptr(a11), _ptr(a12), _ptr(a22), _ptr(b1), _ptr(b2),
-                _ptr(wh), _ptr(wv), _ptr(du_out), _ptr(dv_out),
-                h, w, int(iterations), float(omega), _stream(dev))
-    _raise_on(rc, "sor_coupled")
-    launches["sor_coupled"] += 1
-    return du_out, dv_out
+    return tuple(_sor_launch("sor_coupled", 2, (du, dv, a11, a12, a22, b1, b2, wh, wv),
+                             iterations, omega, variant))

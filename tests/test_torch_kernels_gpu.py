@@ -139,32 +139,40 @@ def _sor_system(h, w, device, seed):
                 a22=f(0.5, 2.0).abs(), b1=f(1.0), b2=f(1.0), wh=wh, wv=wv)
 
 
-@pytest.mark.parametrize("h,w", [(13, 17), (14, 32), (56, 128), (448, 1024)])
+def _sor_threshold_shapes(nop):
+    """(h, w) just below and just above each pair count (ceil(h / 2) * w)
+    where sor_variant(h, w, nop) changes its choice, with w = 64; h odd
+    above, so the last row of pairs has no bottom pixel."""
+    shapes = []
+    for pairs in kernels._SOR_MAX_PAIRS[nop]:
+        shapes += [(2 * (pairs // 64), 64), (2 * (pairs // 64) + 1, 64)]
+    return shapes
+
+
+@pytest.mark.parametrize("h,w", [(13, 17), (14, 32), (56, 128), (448, 1024)]
+                         + _sor_threshold_shapes(2))
 def test_sor_kernels_match_plain(cuda, h, w):
+    """sor_scalar as sor_variant picks; sor_coupled in every variant that can
+    take the level, each bit-equal to the plain version, which divides and
+    sums in the kernel's order."""
     s = _sor_system(h, w, cuda, seed=h + w)
     names = ("du", "a11", "b1", "wh", "wv")
     out = kernels.sor_scalar(*[s[k] for k in names], 3, 1.6)
     torch.testing.assert_close(out, sor_scalar_rb(*[s[k] for k in names], 3, 1.6),
                                rtol=1e-5, atol=1e-5)
-    names = ("du", "dv", "a11", "a12", "a22", "b1", "b2", "wh", "wv")
-    du, dv = kernels.sor_coupled(*[s[k] for k in names], 3, 1.6)
-    rdu, rdv = sor_coupled_rb(*[s[k] for k in names], 3, 1.6)
-    torch.testing.assert_close(du, rdu, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(dv, rdv, rtol=1e-5, atol=1e-5)
+    args = [s[k] for k in ("du", "dv", "a11", "a12", "a22", "b1", "b2", "wh", "wv")] + [3, 1.6]
+    rdu, rdv = sor_coupled_rb(*args)
+    for v in kernels.sor_variants(h, w, 2) + (None,):
+        du, dv = kernels.sor_coupled(*args, variant=v)
+        torch.testing.assert_close(du, rdu, rtol=0, atol=0, msg=f"du, variant {v}")
+        torch.testing.assert_close(dv, rdv, rtol=0, atol=0, msg=f"dv, variant {v}")
+    for v in set(kernels.SOR_VARIANTS) - set(kernels.sor_variants(h, w, 2)):
+        with pytest.raises(ValueError):
+            kernels.sor_coupled(*args, variant=v)
 
 
-def _sor_threshold_shapes():
-    """(h, w) just below and just above each pair count (ceil(h / 2) * w)
-    where sor_variant changes its choice, with w = 64; h odd above, so the
-    last row of pairs has no bottom pixel."""
-    shapes = []
-    for pairs in (kernels._SOR_BLOCK_MAX_PAIRS, kernels._SOR_CLUSTER_MAX_PAIRS):
-        shapes += [(2 * (pairs // 64), 64), (2 * (pairs // 64) + 1, 64)]
-    return shapes
-
-
-@pytest.mark.parametrize("h,w", _sor_threshold_shapes() + [(14, 32), (28, 64), (56, 128),
-                                                          (448, 1024)])
+@pytest.mark.parametrize("h,w", _sor_threshold_shapes(1) + [(14, 32), (28, 64), (56, 128),
+                                                           (448, 1024)])
 def test_sor_scalar_variants_bit_equal(cuda, h, w):
     """Every variant gives the same bits, and so does the plain version,
     which divides and sums in the kernel's order."""
@@ -200,8 +208,8 @@ def test_refine_inner_kernel_matches_plain(cuda, h, w, c, n_inner):
     args = _refine_args(h, w, c, n_inner, cuda)
     uu, vv = kernels.refine_inner(*args)
     ru, rv = refine_inner_reference(*args)
-    torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(uu, ru, rtol=0, atol=0)
+    torch.testing.assert_close(vv, rv, rtol=0, atol=0)
 
 
 def _threshold_shapes():
@@ -224,8 +232,8 @@ def test_refine_inner_variants_bit_equal(cuda, c, side):
     for v, (uu, vv) in outs.items():
         assert torch.equal(uu, picked[0]) and torch.equal(vv, picked[1]), v
     ru, rv = refine_inner_reference(*args)
-    torch.testing.assert_close(picked[0], ru, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(picked[1], rv, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(picked[0], ru, rtol=0, atol=0)
+    torch.testing.assert_close(picked[1], rv, rtol=0, atol=0)
 
 
 def _routes(cfg, h, w):

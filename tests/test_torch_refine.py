@@ -87,6 +87,69 @@ def test_smoothness_laplacian_sor_match_jax(flow48):
         _close(a, b)
 
 
+def test_sor_coupled_rb_rounds_as_the_tpu_kernel():
+    """One sweep of the plain coupled SOR on a seeded 13x17 system equals,
+    bit for bit, a float32 recomputation in the order of the TPU kernel
+    (of_dis_tpu/ops/pallas_kernels.py:58-91) and of the CUDA kernels: the
+    weights summed first, inv = omega / (a + sum) in one true division, du
+    before dv in each colour, dv with the new du."""
+    h, w, omega = 13, 17, 1.6
+    rng = np.random.RandomState(5)
+    f = lambda scale, off=0.0: (rng.randn(h, w) * scale + off).astype(np.float32)  # noqa: E731
+    du, dv = f(0.3), f(0.3)
+    a11, a12, a22 = np.abs(f(0.5, 2.0)), f(0.2), np.abs(f(0.5, 2.0))
+    b1, b2 = f(1.0), f(1.0)
+    wh, wv = np.abs(f(0.5, 1.0)), np.abs(f(0.5, 1.0))
+    wh[:, -1] = 0.0
+    wv[-1, :] = 0.0
+    ours = trf.sor_coupled_rb(*[torch.as_tensor(a) for a in
+                                (du, dv, a11, a12, a22, b1, b2, wh, wv)], 1, omega)
+
+    up = lambda x: np.concatenate([np.zeros_like(x[:1]), x[:-1]], 0)  # noqa: E731
+    down = lambda x: np.concatenate([x[1:], np.zeros_like(x[:1])], 0)  # noqa: E731
+    left = lambda x: np.concatenate([np.zeros_like(x[:, :1]), x[:, :-1]], 1)  # noqa: E731
+    right = lambda x: np.concatenate([x[:, 1:], np.zeros_like(x[:, :1])], 1)  # noqa: E731
+    nb = lambda x: up(wv * x) + left(wh * x) + wv * down(x) + wh * right(x)  # noqa: E731
+    sum_dpsis = up(wv) + left(wh) + wv + wh
+    inv11 = np.float32(omega) / (a11 + sum_dpsis)
+    inv22 = np.float32(omega) / (a22 + sum_dpsis)
+    keep = np.float32(1.0 - omega)
+    red = (np.arange(h)[:, None] + np.arange(w)[None, :]) % 2 == 0
+    for colour in (red, ~red):
+        du = np.where(colour, keep * du + inv11 * ((b1 + nb(du)) - a12 * dv), du)
+        dv = np.where(colour, keep * dv + inv22 * ((b2 + nb(dv)) - a12 * du), dv)
+    assert du.dtype == dv.dtype == np.float32
+    np.testing.assert_array_equal(ours[0].numpy(), du)
+    np.testing.assert_array_equal(ours[1].numpy(), dv)
+
+
+def test_compute_smoothness_rounds_as_the_kernels():
+    """The edge weights on a seeded 13x17 flow equal, bit for bit, a float32
+    recomputation in the order of the CUDA kernel (csrc/refine_inner.cu::
+    smoothness): central differences with replicate borders, then
+    qa / sqrt(ux² + uy² + vx² + vy² + eps) in one true division.  The root
+    is torch.sqrt's, which on the CPU is not always correctly rounded."""
+    rng = np.random.RandomState(6)
+    uu, vv = (rng.randn(2, 13, 17) * 2.0).astype(np.float32)
+    wh, wv = trf.compute_smoothness(torch.as_tensor(uu), torch.as_tensor(vv), 2.5)
+
+    def grads(f):
+        xr, xl = np.minimum(np.arange(17) + 1, 16), np.maximum(np.arange(17) - 1, 0)
+        yd, yu = np.minimum(np.arange(13) + 1, 12), np.maximum(np.arange(13) - 1, 0)
+        half = np.float32(0.5)
+        return half * (f[:, xr] - f[:, xl]), half * (f[yd] - f[yu])
+
+    (ux, uy), (vx, vy) = grads(uu), grads(vv)
+    root = torch.sqrt(torch.as_tensor(ux * ux + uy * uy + vx * vx + vy * vy
+                                      + np.float32(0.001 * 0.001))).numpy()
+    s = np.float32(2.5) / root
+    ref_wh = np.concatenate([s[:, :-1] + s[:, 1:], np.zeros_like(s[:, :1])], 1)
+    ref_wv = np.concatenate([s[:-1] + s[1:], np.zeros_like(s[:1])], 0)
+    assert ref_wh.dtype == ref_wv.dtype == np.float32
+    np.testing.assert_array_equal(wh.numpy(), ref_wh)
+    np.testing.assert_array_equal(wv.numpy(), ref_wv)
+
+
 def test_refine_level_matches_jax(smooth_pair, flow48, monkeypatch):
     """The 48x64 crop of tests/test_refine.py::test_refine_inner_pallas_matches_xla."""
     monkeypatch.setattr(jrf, "WARP_MATMUL_MAX_FLOPS", 0)

@@ -72,25 +72,26 @@ def test_refine_variant_total_deterministic_monotone(c):
     assert refine_variant(448, 1024, c) == ("grid", 0)
 
 
-def test_sor_variant_total_deterministic_monotone():
-    """sor_scalar's launch variant: defined for every level size, one that
-    can take the level, the same on every call, never a narrower barrier for
-    more pixel pairs, the block at stereo op2's levels 5 and 4 (14x32,
-    28x64), a cluster at level 3 (56x128) and the cooperative grid at
-    448x1024.  Pure arithmetic."""
+@pytest.mark.parametrize("nop", [1, 2])
+def test_sor_variant_total_deterministic_monotone(nop):
+    """The launch variant of sor_scalar (nop 1) and sor_coupled (nop 2):
+    defined for every level size, one that can take the level, the same on
+    every call, never a narrower barrier for more pixel pairs, the block at
+    op2's levels 5 and 4 (14x32, 28x64), a cluster at level 3 (56x128) and
+    the cooperative grid at 448x1024.  Pure arithmetic."""
     rank = {"block": 0, "cluster": 1, "grid": 2}
     sizes = [(h, w) for h in (1, 2, 3, 7, 14, 28, 56, 57, 64, 65, 112, 113, 224, 448, 449)
              for w in (1, 3, 32, 64, 128, 256, 512, 1024)]
     last = (-1, 0)
     for h, w in sorted(sizes, key=lambda s: (-(-s[0] // 2) * s[1], s)):
-        v, n = picked = sor_variant(h, w)
-        assert picked == sor_variant(h, w)
-        assert v in rank and v in sor_variants(h, w)
+        v, n = picked = sor_variant(h, w, nop)
+        assert picked == sor_variant(h, w, nop)
+        assert v in rank and v in sor_variants(h, w, nop)
         assert (n == 1) if v == "block" else (2 <= n <= 16) if v == "cluster" else (n == 0)
         assert (rank[v], n if v == "cluster" else 0) >= last, (h, w, v, n, last)
         last = (rank[v], n if v == "cluster" else 0)
-        assert "grid" in sor_variants(h, w)
+        assert "grid" in sor_variants(h, w, nop)
     for h, w in ((14, 32), (28, 64)):
-        assert sor_variant(h, w) == ("block", 1)
-    assert sor_variant(56, 128)[0] == "cluster"
-    assert sor_variant(448, 1024) == ("grid", 0)
+        assert sor_variant(h, w, nop) == ("block", 1)
+    assert sor_variant(56, 128, nop)[0] == "cluster"
+    assert sor_variant(448, 1024, nop) == ("grid", 0)

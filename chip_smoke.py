@@ -15,7 +15,12 @@ each launch variant (block, cluster, grid), and sor_coupled (on no path)
 seeded fields at op2's level shapes and up to 448x1024; the variants must
 give the same bits as one another and as their plain versions, and each
 prints its variants' times, the one refine_variant / sor_variant picks and
-a fit of each variant's cost per phase.
+a fit of each variant's cost per phase.  A batched phase then drives op2
+gray (B = 32), stereo gray (B = 8) and op4 gray (B = 4) on distinct pairs
+through batched_flow: each pair must equal its own run, each kernel call of
+a batch its plain version on the same batched tensors, and every kernel in
+every variant at B = 1, 2, 7, 32 its per-pair launches; it prints op2 gray
+pairs/s at B = 1, 8, 32.
 It checks the outputs against the reference binaries' goldens, the port's CPU path and
 a second run, times pairs, profiles the device, runs the CLI (flow and
 stereo), and prints one JSON line per phase.  The line before the last
@@ -205,6 +210,316 @@ def sor_work(nop: int, h: int, w: int, iterations: int) -> tuple:
     return 4.0 * fields * h * w, (16.0 if nop == 1 else 31.0) * h * w * iterations
 
 
+def record_calls(kernels, fn) -> dict:
+    """fn() with every kernel wrapper's calls recorded: {kernel: [(args, kwargs)]}."""
+    calls = {k: [] for k in KERNELS}
+    orig = {k: getattr(kernels, k) for k in KERNELS}
+
+    def recorder(k):
+        def rec(*a, **kw):
+            calls[k].append((a, kw))
+            return orig[k](*a, **kw)
+        return rec
+
+    try:
+        for k in KERNELS:
+            setattr(kernels, k, recorder(k))
+        fn()
+    finally:
+        for k, f in orig.items():
+            setattr(kernels, k, f)
+    return calls
+
+
+def one_pair_args(kernel: str, a: tuple) -> tuple:
+    """A kernel call's arguments on a batch of one pair as that pair's own
+    (the wrappers take either)."""
+    if kernel == "level_search":  # ima, dxa, dya, imb, pt_ref, p_init, ...
+        return (*(t[0] for t in a[:4]), a[4], a[5][0], *a[6:])
+    if kernel == "gn_search":  # imb, tmpl, pt_ref, p_init, ...
+        return (a[0][0], type(a[1])(*(t[0] for t in a[1])), a[2], a[3][0], *a[4:])
+    if kernel == "refine_inner":  # wx, wy, mask, derivs, ...
+        return (*(t[0] for t in a[:3]), tuple(t[0] for t in a[3]), *a[4:])
+    n = 5 if kernel == "sor_scalar" else 9  # the SOR fields, then iterations, omega
+    return (*(t[0] for t in a[:n]), *a[n:])
+
+
+# ---- the batched phase ----
+# Each batched path: B distinct pairs, pair i the path's pair rolled
+# horizontally by ROLL_PX * i px, so a wrong pair offset cannot hide.
+BATCHED = {"op2 gray": 32, "stereo gray": 8, "op4 gray": 4}
+ROLL_PX = 4
+CHECK_B = (1, 2, 7, 32)      # batched launches held against per-pair launches
+VARIANT_B = (1, 2, 8, 16, 32)  # launch variants timed at these batch sizes
+THROUGHPUT_B = (1, 8, 32)    # pairs/s of the batched op2 gray path
+QUEUED = 16                  # batches queued per timed repetition
+THROUGHPUT_REPS = 5
+
+
+def rolled_batch(img1, img2, b: int):
+    """(b, H, W, C) stacks of a pair rolled horizontally by ROLL_PX * i px."""
+    return tuple(np.stack([np.roll(im, ROLL_PX * i, axis=1) for i in range(b)])
+                 for im in (img1, img2))
+
+
+def outputs(out, i=None) -> list:
+    """A kernel wrapper's outputs as a list (a tensor, a tuple or a
+    SearchResult), of pair i of a batched call if i is given."""
+    ts = [out] if hasattr(out, "shape") else list(out)
+    return ts if i is None else [None if t is None else t[i] for t in ts]
+
+
+def batched_vs_pairs(torch, launch, make, variants) -> dict:
+    """For each launch variant and each b of CHECK_B: one batched launch of
+    make(b)'s batch against a launch per pair, every output bit-equal.
+    Returns {"variant b": pairs that differ}."""
+    differ = {}
+    for v in variants:
+        for b in CHECK_B:
+            batch, pairs = make(b)
+            out = launch(batch, v)
+            bad = 0
+            for i, one in enumerate(pairs):
+                got, want = outputs(out, i), outputs(launch(one, v))
+                bad += not all((g is None and w is None) or torch.equal(g, w)
+                               for g, w in zip(got, want))
+            differ[f"{v} {b}"] = bad
+    torch.cuda.synchronize()
+    return differ
+
+
+def tiled(torch, t, b: int):
+    """b pairs from a batch t of fewer: pair i is t's pair i % len(t)."""
+    return t[torch.tensor([i % t.shape[0] for i in range(b)], device=t.device)]
+
+
+def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
+    """The batched paths (BATCHED), each pair equal to its own run; every
+    kernel at each b of CHECK_B, batched against per-pair launches; the
+    launch variants' times at VARIANT_B; each kernel's ms per pair at B = 32
+    (into rows); op2 gray pairs/s at THROUGHPUT_B.  Returns {b: pairs/s}."""
+    h0, w0 = inputs["op2 gray"][0].shape[:2]
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from of_dis_tpu_torch import batched_flow
+    from of_dis_tpu_torch.ops import kernels
+    from of_dis_tpu_torch.models.inverse_search import (
+        PatchTemplates,
+        gn_search_reference,
+        level_search_reference,
+    )
+    from of_dis_tpu_torch.models.refine import refine_inner_reference, sor_scalar_rb
+
+    bcalls = {}
+    for name, nb in BATCHED.items():
+        img1, img2, cfg = inputs[name]
+        a, bb = rolled_batch(img1, img2, nb)
+        kernels.reset_launches()
+        out = batched_flow(a, bb, cfg, device=dev)
+        torch.cuda.synchronize()
+        made = dict(kernels.launches)
+        out = out.cpu().numpy()
+        bcalls[name] = record_calls(kernels, lambda: batched_flow(a, bb, cfg, device=dev))
+        equal = [bool(np.array_equal(out[i], run_path(name, a[i], bb[i], cfg, dev)))
+                 for i in range(nb)]
+        line = dict(config=f"{name} {w0}x{h0}", pairs=nb, roll_px_per_pair=ROLL_PX,
+                    launches_per_batch=made, pairs_equal_to_own_run=sum(equal),
+                    epe_pair0_vs_golden=epe(out[0], golden(PATHS[name][4])))
+        emit("batched path", **line)
+        require(made == expected_launches(name),
+                f"{name} batch of {nb} launched {made}, expected {expected_launches(name)}")
+        require(all(equal), f"{name}: batched pairs differ from their own runs: {equal}")
+        require(line["epe_pair0_vs_golden"] < EPE_GOLDEN, f"{name} batched: {line}")
+
+    # Every kernel call of the batched paths (one per level), on the path's
+    # own B distinct pairs, against its plain version on the same batched
+    # tensors on the card: every output bit-equal.
+    plain = {"level_search": level_search_reference, "gn_search": gn_search_reference,
+             "refine_inner": refine_inner_reference, "sor_scalar": sor_scalar_rb}
+    for name, nb in BATCHED.items():
+        for k, kcalls in bcalls[name].items():
+            seen = set()
+            for i, (a, kw) in enumerate(kcalls):
+                hw = tuple(a[0].shape[1:3])
+                if hw in seen:  # stereo's SOR: several calls per level
+                    continue
+                seen.add(hw)
+                got, want = outputs(getattr(kernels, k)(*a, **kw)), outputs(plain[k](*a, **kw))
+                torch.cuda.synchronize()
+                differ = [j for j, (g, r) in enumerate(zip(got, want))
+                          if not ((g is None and r is None) or torch.equal(g, r))]
+                line = dict(kernel=k, path=name, pairs=nb, call=i, hw=list(hw),
+                            outputs_that_differ=differ,
+                            max_abs_err=max((float((g.double() - r.double()).abs().max())
+                                             for g, r in zip(got, want) if g is not None),
+                                            default=0.0))
+                emit("batched kernel vs plain", **line)
+                require(not differ, f"{k} on the {name} batch differs from its plain version: "
+                                    f"{line}")
+
+    # Every kernel, every variant, at each b of CHECK_B: one batched launch
+    # against a launch per pair, at the batched paths' own calls.  Pairs past
+    # a path's batch repeat its pairs with a distinct start (p_init, or the
+    # SOR right-hand side) so that no two pairs of a batch are the same.
+    def shift(b, nb, step):
+        return torch.tensor([step * (i // nb) for i in range(b)], device=dev)
+
+    def search_make(a, with_tmpl):
+        """level_search's (ima, dxa, dya, imb, pt_ref, p_init, ...) or
+        gn_search's (imb, tmpl, pt_ref, p_init, ...)."""
+        n_img = 1 if with_tmpl else 4
+        pt, p0 = a[n_img + with_tmpl], a[n_img + with_tmpl + 1]
+        rest = a[n_img + with_tmpl + 2:]
+
+        def make(b):
+            nb = p0.shape[0]
+            imgs = [tiled(torch, x, b) for x in a[:n_img]]
+            tm = PatchTemplates(*(tiled(torch, f, b) for f in a[1])) if with_tmpl else None
+            pb = (tiled(torch, p0, b) + shift(b, nb, 0.25)[:, None, None]).contiguous()
+
+            def pair(i):
+                head = [x[i] for x in imgs]
+                if with_tmpl:
+                    head.append(PatchTemplates(*(f[i] for f in tm)))
+                return (*head, pt, pb[i], *rest)
+
+            head = imgs + ([tm] if with_tmpl else [])
+            return (*head, pt, pb, *rest), [pair(i) for i in range(b)]
+        return make
+
+    def refine_make(a):
+        def make(b):
+            nb = a[0].shape[0]
+            f = [tiled(torch, x, b) for x in a[:3]]
+            f[0] = (f[0] + shift(b, nb, 0.01)[:, None, None]).contiguous()  # wx
+            d = tuple(tiled(torch, x, b) for x in a[3])
+            return ((*f, d, *a[4:]),
+                    [(*(x[i] for x in f), tuple(x[i] for x in d), *a[4:]) for i in range(b)])
+        return make
+
+    def sor_make(a):
+        def make(b):
+            nb = a[0].shape[0]
+            f = [tiled(torch, x, b) for x in a[:5]]
+            f[2] = (f[2] + shift(b, nb, 0.01)[:, None, None]).contiguous()  # b1
+            return (*f, *a[5:]), [(*(x[i] for x in f), *a[5:]) for i in range(b)]
+        return make
+
+    def coupled_make(h, w):
+        def make(b):
+            systems = [sor_system(h, w, h * w + i) for i in range(b)]
+            f = [torch.stack([sy[k] for sy in systems]) for k in range(9)]
+            return (*f, 3, 1.6), [(*(x[i] for x in f), 3, 1.6) for i in range(b)]
+        return make
+
+    launch = {
+        "level_search": lambda a, v: kernels.level_search(*a),
+        "gn_search": lambda a, v: kernels.gn_search(*a),
+        "refine_inner": lambda a, v: kernels.refine_inner(*a, variant=v),
+        "sor_scalar": lambda a, v: kernels.sor_scalar(*a, variant=v),
+        "sor_coupled": lambda a, v: kernels.sor_coupled(*a, variant=v),
+    }
+    stereo_cfg = inputs["stereo gray"][2]
+    stereo_levels = [sl for sl in range(stereo_cfg.sc_f, stereo_cfg.sc_l - 1, -1)
+                     for _ in range(stereo_cfg.tv_innerit * (sl + 1))]
+    # (kernel, case, make, variants, timed into the kernels row's ms per pair at B = 32)
+    bcases = []
+    for name in ("op2 gray", "stereo gray", "op4 gray"):
+        for i, (a, _) in enumerate(bcalls[name]["level_search"]):
+            bcases.append(("level_search", f"{name} call {i}", search_make(a, False), (None,),
+                           name == "op2 gray"))
+    for i, (a, _) in enumerate(bcalls["op4 gray"]["gn_search"]):
+        bcases.append(("gn_search", f"op4 gray call {i}", search_make(a, True), (None,), True))
+    for name in ("op2 gray", "op4 gray"):
+        for i, (a, _) in enumerate(bcalls[name]["refine_inner"]):
+            h, w = a[0].shape[1:]
+            bcases.append(("refine_inner", f"{name} {h}x{w}", refine_make(a),
+                           kernels.refine_variants(h, w), name == "op2 gray"))
+    seen = set()
+    for sl, (a, _) in zip(stereo_levels, bcalls["stereo gray"]["sor_scalar"]):
+        h, w = a[0].shape[1:]
+        first = sl not in seen  # each level's first call is checked in every variant
+        seen.add(sl)
+        bcases.append(("sor_scalar", f"stereo gray level {sl}", sor_make(a),
+                       kernels.sor_variants(h, w) if first else (), True))
+    for h, w in ((14, 32), (28, 64), (56, 128)):
+        bcases.append(("sor_coupled", f"op2 shape {h}x{w}", coupled_make(h, w),
+                       kernels.sor_variants(h, w, 2), True))
+
+    b32 = {k: 0.0 for k in KERNELS}  # ms per pair at B = 32, the rows' own calls
+    variant_times = {}
+    for k, case, make, variants, timed in bcases:
+        differ = batched_vs_pairs(torch, launch[k], make, variants) if variants else {}
+        line = dict(kernel=k, case=case, pairs_that_differ=differ)
+        if timed:
+            batch32 = make(32)[0]
+            ms = gpu_ms(torch, lambda: launch[k](batch32, None), 10)
+            b32[k] += ms / 32
+            line["ms_at_b32"] = ms
+        if variants and variants != (None,) and "call" not in case:
+            shape = case.split()[-1]
+            key = f"{k} {shape}"
+            if key not in variant_times:
+                variant_times[key] = True
+                per_b = {}
+                for b in VARIANT_B:
+                    batch = make(b)[0]
+                    hw = batch[0].shape[1:]
+                    per_b[str(b)] = dict(
+                        picked=list(kernels.refine_variant(*hw, 1, b) if k == "refine_inner"
+                                    else kernels.sor_variant(*hw, 1 if k == "sor_scalar" else 2,
+                                                             b)),
+                        ms={v: gpu_ms(torch, lambda v=v: launch[k](batch, v), 10)
+                            for v in variants})
+                line["variant_ms_at_b"] = per_b
+        emit("batched kernel", **line)
+        require(not any(differ.values()),
+                f"{k} {case}: batched launches differ from per-pair launches: {differ}")
+    for k in KERNELS:
+        rows[k]["ms_per_pair_b32"] = b32[k]
+
+    # Throughput: op2 gray at B = 1, 8, 32 distinct pairs, pre-padded on the
+    # card (as bench.py feeds the JAX package's _batched_padded): QUEUED
+    # batches queued, then the last one's copy to the host; THROUGHPUT_REPS
+    # repetitions.  Then one profiled batch: device busy per pair and idle.
+    from of_dis_tpu_torch.ops import pyramid as pyr
+    from of_dis_tpu_torch.parallel.batch import _batched_padded
+
+    img1, img2, cfg = inputs["op2 gray"]
+    scf = 1 << cfg.sc_f
+    throughput = {}
+    for b in THROUGHPUT_B:
+        a, bb = (pyr.pad_to_divisible(torch.as_tensor(x, device=dev), scf)
+                 for x in rolled_batch(img1, img2, b))
+        _batched_padded(a, bb, cfg).cpu()
+        rates = []
+        for _ in range(THROUGHPUT_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(QUEUED):
+                last = _batched_padded(a, bb, cfg)
+            last.cpu()
+            rates.append(QUEUED * b / (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _batched_padded(a, bb, cfg).cpu()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        throughput[str(b)] = float(np.median(rates))
+        emit("throughput", config=f"op2 gray {w0}x{h0} batched, pre-padded on the card",
+             batch=b, queued_batches=QUEUED, reps=THROUGHPUT_REPS,
+             pairs_per_s_median=float(np.median(rates)), pairs_per_s_min=float(min(rates)),
+             pairs_per_s_max=float(max(rates)), pairs_per_s_all=rates,
+             profiled_batch_wall_ms=wall_ms,
+             device_busy_ms_per_pair=busy / b if busy else "not measured",
+             device_idle_share=(1.0 - busy / wall_ms) if busy else "not measured",
+             nvidia_smi=smi)
+    return throughput
+
+
 def main() -> int:
     import torch
 
@@ -265,25 +580,12 @@ def main() -> int:
     h0, w0 = inputs["op2 gray"][0].shape[:2]
 
     def capture(name):
-        """Run a path once on the card, recording every kernel call's arguments."""
-        calls = {k: [] for k in KERNELS}
-        orig = {k: getattr(kernels, k) for k in KERNELS}
-
-        def recorder(k):
-            def rec(*a, **kw):
-                calls[k].append((a, kw))
-                return orig[k](*a, **kw)
-            return rec
-
-        try:
-            for k in KERNELS:
-                setattr(kernels, k, recorder(k))
-            run_path(name, *inputs[name], dev)
-        finally:
-            for k, f in orig.items():
-                setattr(kernels, k, f)
+        """Run a path once on the card, recording every kernel call's
+        arguments as one pair's (the driver calls each kernel on a batch of
+        one)."""
+        calls = record_calls(kernels, lambda: run_path(name, *inputs[name], dev))
         torch.cuda.synchronize()
-        return calls
+        return {k: [(one_pair_args(k, a), kw) for a, kw in v] for k, v in calls.items()}
 
     calls = {}
     for name in PATHS:
@@ -677,6 +979,9 @@ def main() -> int:
             require(line["epe_card_vs_cpu"] < EPE_CPU,
                     f"{name}: card vs CPU mean EPE {line['epe_card_vs_cpu']}")
 
+    # ---- batched: B distinct pairs per call, each equal to its own run ----
+    throughput = batched_phase(torch, dev, inputs, rows, smi, golden, sor_system)
+
     # ---- where the time goes: device activity over a traced window ----
     # Busy time and wall time come from the same traced window, so the idle
     # share includes the profiler's own host overhead.
@@ -736,16 +1041,19 @@ def main() -> int:
              max_abs_err=rows[k]["max_abs_err"], ms=rows[k]["ms"],
              plain_ms=rows[k]["plain_ms"], bound_ms=rows[k]["bound_ms"],
              bound_by=rows[k]["bound_by"], library_ms=None,
-             **{key: rows[k][key] for key in ("level_ms", "variant_ms") if key in rows[k]})
+             **{key: rows[k][key] for key in ("level_ms", "variant_ms", "ms_per_pair_b32")
+                if key in rows[k]})
         for k in KERNELS
     ]
     emit("kernels", note="launches, ms, plain_ms and bound_ms are per pair of the path "
          "named in `per` (the sum over its launches; level_ms splits ms by pyramid level, "
-         "variant_ms gives it for each launch variant); "
+         "variant_ms gives it for each launch variant); ms_per_pair_b32 is the time of the "
+         "same calls of the batched path at B = 32 distinct pairs, over 32; "
          "sor_coupled is on no path: its times sum one launch at each op2 level shape, "
          "and its variant_ms gives each variant's ms at each of those levels",
          per={k: rows[k]["per"] for k in KERNELS}, launches_per_path=counts,
-         pair_ms_median=latency, checks={k: "ok" for k in KERNELS},
+         pair_ms_median=latency, batched_pairs_per_s=throughput,
+         checks={k: "ok" for k in KERNELS},
          total_seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,12 +12,17 @@ Public API:
     dis_flow(img1, img2, cfg, device=None)   -> (H, W, 2) optical flow tensor
     dis_stereo(img1, img2, cfg, device=None) -> (H, W) disparity tensor (left camera <= 0)
     dis_raw(img1, img2, cfg, ...)            -> (H, W, nop) tensor
+    batched_flow(imgs1, imgs2, cfg, device=None) -> (B, H, W, nop) tensor, one
+        batched launch per kernel call for all B pairs
+    parallel.video.process_video / process_video_batched: video with warm
+        start and checkpoint / resume
     DISConfig, operating_point, auto_first_scale
     io.read_flo / write_flo / read_pfm / write_pfm / load_image
 """
 
 from .config import DISConfig, auto_first_scale, operating_point
 from .models.dis import dis_flow, dis_raw, dis_stereo
+from .parallel.batch import batched_flow
 from . import io
 
 __version__ = "0.1.0"
@@ -25,6 +30,7 @@ __version__ = "0.1.0"
 __all__ = [
     "DISConfig",
     "auto_first_scale",
+    "batched_flow",
     "operating_point",
     "dis_flow",
     "dis_raw",

@@ -9,7 +9,11 @@
 // pixels l + 32 q for q < NP = ceil(psz^2 / 32); slots past psz^2 hold zeros
 // and take part in every reduction.  WARPS warps share a block, each with its
 // own search window in shared memory, and each warp takes patches warp_id,
-// warp_id + total warps, ... until none is left (launch_search below).
+// warp_id + total warps, ... until none is left (launch_search below).  A
+// launch searches a batch of image pairs: its patches are the pairs' N
+// patches each, g = b * N + n (pair b, patch n of the level's grid), one
+// flat axis over which the warps stride; a patch reads its pair's images
+// and the shared centre pt_ref[n].
 // load_window copies the patch's (sy, sx, C) search window of the padded
 // target image into shared memory at the clipped window base
 // (inverse_search.py:303-308); gn_machine then runs max_iter + 1 trips:
@@ -35,7 +39,8 @@
 namespace gnm {
 
 struct GNConsts {
-  int n, hp, wp, pad, w, h, sy, sx;
+  int n, pairs;  // patches per pair (the level's grid), image pairs
+  int hp, wp, pad, w, h, sy, sx;
   int max_iter, min_iter, cost, patch_norm, stereo_clamp;  // clamp: -1 none, 0 min(p,0), 1 max(p,0)
   float normoutlier, dp_thresh_sq, dr_thresh, res_thresh, outlier_sq, minerrval;
 };
@@ -445,8 +450,9 @@ cudaError_t search_blocks_per_sm(void (*kernel)(Params), launch::PerDevice& kept
   });
 }
 
-// One launch of n patches: as many blocks as fit on the card at once, and no
-// more than the patches need; each warp strides over the patches.
+// One launch of pairs * n patches: as many blocks as fit on the card at
+// once, and no more than the patches need; each warp strides over the
+// patches.
 template <int PSZ, int C, class Params>
 cudaError_t launch_search(void (*kernel)(Params), launch::PerDevice& kept, const Params& P,
                           cudaStream_t stream) {
@@ -454,7 +460,8 @@ cudaError_t launch_search(void (*kernel)(Params), launch::PerDevice& kept, const
   cudaError_t e = search_blocks_per_sm<PSZ, C>(kernel, kept, &per_sm);
   if (e == cudaSuccess) e = launch::sm_count(&sms);
   if (e != cudaSuccess) return e;
-  const int grid = min((P.k.n + WARPS - 1) / WARPS, per_sm * sms);
+  const long long total = (long long)P.k.n * P.k.pairs;
+  const int grid = int(min((total + WARPS - 1) / WARPS, (long long)per_sm * sms));
   if (grid < 1) return cudaErrorInvalidConfiguration;
   kernel<<<grid, 32 * WARPS, window_smem<PSZ, C>(), stream>>>(P);
   return cudaGetLastError();
@@ -472,6 +479,22 @@ cudaError_t dispatch(int psz, int c, int nop, A... a) {
   if (psz == 12 && c == 1 && nop == 1) return F<12, 1, 1>::run(a...);
   if (psz == 12 && c == 3 && nop == 1) return F<12, 3, 1>::run(a...);
   return cudaErrorInvalidValue;
+}
+
+// Where patch g of a launch lies: its pair b, its patch n of the level's
+// grid, and the offset of its pair's images (floats).
+struct PatchOf {
+  int b, n;
+  size_t image;
+};
+
+template <int C>
+__device__ __forceinline__ PatchOf patch_of(const GNConsts& k, int g) {
+  PatchOf r;
+  r.b = g / k.n;
+  r.n = g - r.b * k.n;
+  r.image = size_t(r.b) * k.hp * k.wp * C;
+  return r;
 }
 
 }  // namespace gnm

@@ -49,18 +49,18 @@
 namespace {
 
 struct GNSearchParams {
-  const float* tmp;    // (N, psz, psz, C) templates (mean-normalised if patch_norm)
-  const float* dx;     // (N, psz, psz, C) x-gradients
-  const float* dy;     // (N, psz, psz, C) y-gradients
-  const float* hes;    // (N, nop == 2 ? 3 : 1) [h00, h01, h11] / [h00], bumped
-  const float* imb;    // (Hp, Wp, C) padded target image
-  const float* ptref;  // (N, 2) patch centres (x, y)
-  const float* pinit;  // (N, nop) initial displacement
-  float* p_out;        // (N, nop)
-  float* pt_out;       // (N, 2)
-  float* pw_out;       // (N, psz, psz, C)
-  int* conv_out;       // (N,)
-  int* iters_out;      // (N,) GN iterations run
+  const float* tmp;    // (B, N, psz, psz, C) templates (mean-normalised if patch_norm)
+  const float* dx;     // (B, N, psz, psz, C) x-gradients
+  const float* dy;     // (B, N, psz, psz, C) y-gradients
+  const float* hes;    // (B, N, nop == 2 ? 3 : 1) [h00, h01, h11] / [h00], bumped
+  const float* imb;    // (B, Hp, Wp, C) padded target images
+  const float* ptref;  // (N, 2) patch centres (x, y), shared by the pairs
+  const float* pinit;  // (B, N, nop) initial displacement
+  float* p_out;        // (B, N, nop)
+  float* pt_out;       // (B, N, 2)
+  float* pw_out;       // (B, N, psz, psz, C)
+  int* conv_out;       // (B, N)
+  int* iters_out;      // (B, N) GN iterations run
   gnm::GNConsts k;
 };
 
@@ -77,7 +77,11 @@ gn_search_kernel(const GNSearchParams P) {
   float* win = smem + warp * gnm::window_floats<PSZ, C>();
   const L lay{int(threadIdx.x & 31)};
 
-  for (int n = blockIdx.x * WARPS + warp; n < P.k.n; n += gridDim.x * WARPS) {
+  const int total = P.k.n * P.k.pairs;
+  for (int n = blockIdx.x * WARPS + warp; n < total; n += gridDim.x * WARPS) {
+    // n indexes the batch's patches (templates, outputs); at is the pair
+    // and the grid patch (pt_ref) it stands for
+    const gnm::PatchOf at = gnm::patch_of<C>(P.k, n);
     float T[NP][C], DX[NP][C], DY[NP][C];
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
@@ -100,11 +104,11 @@ gn_search_kernel(const GNSearchParams P) {
     } else {
       h00 = P.hes[n];
     }
-    const float prx = P.ptref[2 * n], pry = P.ptref[2 * n + 1];
+    const float prx = P.ptref[2 * at.n], pry = P.ptref[2 * at.n + 1];
     const float pin0 = P.pinit[NOP * n];
     const float pin1 = NOP == 2 ? P.pinit[NOP * n + 1] : 0.f;
     const gnm::Start st =
-        gnm::load_window<PSZ, C, NOP>(lay, P.k, P.imb, prx, pry, pin0, pin1, win);
+        gnm::load_window<PSZ, C, NOP>(lay, P.k, P.imb + at.image, prx, pry, pin0, pin1, win);
     float tn = 0.f;
     if (P.k.cost == 10) {
       float v[1][NP], s[1];
@@ -169,14 +173,16 @@ extern "C" int gn_search_launch(
     const float* tmp, const float* dx, const float* dy, const float* hes, const float* imb,
     const float* ptref, const float* pinit,
     float* p_out, float* pt_out, float* pw_out, int* conv_out, int* iters_out,
-    int n, int hp, int wp, int c, int psz, int nop, int pad, int w, int h,
+    int n, int pairs, int hp, int wp, int c, int psz, int nop, int pad, int w, int h,
     int sy, int sx, int max_iter, int min_iter, int cost, int patch_norm,
     int stereo_clamp, float normoutlier, float dp_thresh_sq, float dr_thresh,
     float res_thresh, float outlier_sq, float minerrval, void* stream) {
-  if (n <= 0 || sy > 2 * psz + 2 || sx > 2 * psz + 2) return int(cudaErrorInvalidValue);
+  if (n <= 0 || pairs <= 0 || (long long)n * pairs > 0x7fffffff || sy > 2 * psz + 2 ||
+      sx > 2 * psz + 2)
+    return int(cudaErrorInvalidValue);
   const GNSearchParams P{tmp, dx, dy, hes, imb, ptref, pinit, p_out, pt_out, pw_out, conv_out,
                          iters_out,
-                         {n, hp, wp, pad, w, h, sy, sx, max_iter, min_iter, cost, patch_norm,
+                         {n, pairs, hp, wp, pad, w, h, sy, sx, max_iter, min_iter, cost, patch_norm,
                           stereo_clamp, normoutlier, dp_thresh_sq, dr_thresh, res_thresh,
                           outlier_sq, minerrval}};
   return int(gnm::dispatch<Search>(psz, c, nop, &P, static_cast<cudaStream_t>(stream)));

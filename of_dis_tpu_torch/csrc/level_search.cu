@@ -1,5 +1,5 @@
 // level_search.cu — whole-level inverse-compositional Gauss-Newton patch
-// search for one pyramid level of one image pair (DIS step 3).
+// search for one pyramid level of a batch of image pairs (DIS step 3).
 //
 // Replaces of_dis_tpu/ops/pallas_kernels.py::_level_kernel (with
 // _gn_machine, _fetch_windows and _row_onehot), launched there by
@@ -35,17 +35,17 @@
 namespace {
 
 struct LevelParams {
-  const float* ima;    // (Hp, Wp, C) padded reference image
-  const float* dxa;    // (Hp, Wp, C) its x-gradient
-  const float* dya;    // (Hp, Wp, C) its y-gradient
-  const float* imb;    // (Hp, Wp, C) padded target image
-  const float* ptref;  // (N, 2) patch centres (x, y)
-  const float* pinit;  // (N, nop) initial displacement
-  float* p_out;        // (N, nop)
-  float* pt_out;       // (N, 2)
-  float* absw_out;     // (N, psz*psz), k = y*psz + x
-  int* conv_out;       // (N,)
-  int* iters_out;      // (N,) GN iterations run
+  const float* ima;    // (B, Hp, Wp, C) padded reference images
+  const float* dxa;    // (B, Hp, Wp, C) their x-gradients
+  const float* dya;    // (B, Hp, Wp, C) their y-gradients
+  const float* imb;    // (B, Hp, Wp, C) padded target images
+  const float* ptref;  // (N, 2) patch centres (x, y), shared by the pairs
+  const float* pinit;  // (B, N, nop) initial displacement
+  float* p_out;        // (B, N, nop)
+  float* pt_out;       // (B, N, 2)
+  float* absw_out;     // (B, N, psz*psz), k = y*psz + x
+  int* conv_out;       // (B, N)
+  int* iters_out;      // (B, N) GN iterations run
   gnm::GNConsts k;
 };
 
@@ -65,9 +65,16 @@ level_search_kernel(const LevelParams P) {
   const float novals = float(C * NPIX);
   const int wp = P.k.wp;
 
-  for (int n = blockIdx.x * WARPS + warp; n < P.k.n; n += gridDim.x * WARPS) {
+  const int total = P.k.n * P.k.pairs;
+  for (int n = blockIdx.x * WARPS + warp; n < total; n += gridDim.x * WARPS) {
+    // n indexes the batch's patches and their outputs; at is the pair and
+    // the grid patch (pt_ref) it stands for
+    const gnm::PatchOf at = gnm::patch_of<C>(P.k, n);
+    const float* ima = P.ima + at.image;
+    const float* dxa = P.dxa + at.image;
+    const float* dya = P.dya + at.image;
     // ---- templates at the static centres (patch.cpp:57-88) ----
-    const float prx = P.ptref[2 * n], pry = P.ptref[2 * n + 1];
+    const float prx = P.ptref[2 * at.n], pry = P.ptref[2 * at.n + 1];
     int cy = int(floorf(pry + 0.5f)) + P.k.pad + LB;
     int cx = int(floorf(prx + 0.5f)) + P.k.pad + LB;
     cy = min(max(cy, 0), P.k.hp - PSZ);
@@ -80,15 +87,15 @@ level_search_kernel(const LevelParams P) {
       const int base = has_px ? ((cy + t / PSZ) * wp + cx + t % PSZ) * C : 0;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        T[q][c] = has_px ? P.ima[base + c] : 0.f;
-        DX[q][c] = has_px ? P.dxa[base + c] : 0.f;
-        DY[q][c] = has_px ? P.dya[base + c] : 0.f;
+        T[q][c] = has_px ? ima[base + c] : 0.f;
+        DX[q][c] = has_px ? dxa[base + c] : 0.f;
+        DY[q][c] = has_px ? dya[base + c] : 0.f;
       }
     }
     const float pin0 = P.pinit[NOP * n];
     const float pin1 = NOP == 2 ? P.pinit[NOP * n + 1] : 0.f;
     const gnm::Start st =
-        gnm::load_window<PSZ, C, NOP>(lay, P.k, P.imb, prx, pry, pin0, pin1, win);
+        gnm::load_window<PSZ, C, NOP>(lay, P.k, P.imb + at.image, prx, pry, pin0, pin1, win);
 
     // The template sum (for its mean, patch.cpp:330-331) and the Hessian in
     // one reduction: each total is the same tree of the same operands as
@@ -183,14 +190,16 @@ extern "C" int level_search_launch(
     const float* ima, const float* dxa, const float* dya, const float* imb,
     const float* ptref, const float* pinit,
     float* p_out, float* pt_out, float* absw_out, int* conv_out, int* iters_out,
-    int n, int hp, int wp, int c, int psz, int nop, int pad, int w, int h,
+    int n, int pairs, int hp, int wp, int c, int psz, int nop, int pad, int w, int h,
     int sy, int sx, int max_iter, int min_iter, int cost, int patch_norm,
     int stereo_clamp, float normoutlier, float dp_thresh_sq, float dr_thresh,
     float res_thresh, float outlier_sq, float minerrval, void* stream) {
-  if (n <= 0 || sy > 2 * psz + 2 || sx > 2 * psz + 2) return int(cudaErrorInvalidValue);
+  if (n <= 0 || pairs <= 0 || (long long)n * pairs > 0x7fffffff || sy > 2 * psz + 2 ||
+      sx > 2 * psz + 2)
+    return int(cudaErrorInvalidValue);
   const LevelParams P{ima, dxa, dya, imb, ptref, pinit, p_out, pt_out, absw_out, conv_out,
                       iters_out,
-                      {n, hp, wp, pad, w, h, sy, sx, max_iter, min_iter, cost, patch_norm,
+                      {n, pairs, hp, wp, pad, w, h, sy, sx, max_iter, min_iter, cost, patch_norm,
                        stereo_clamp, normoutlier, dp_thresh_sq, dr_thresh, res_thresh,
                        outlier_sq, minerrval}};
   return int(gnm::dispatch<Search>(psz, c, nop, &P, static_cast<cudaStream_t>(stream)));

@@ -1,6 +1,6 @@
 // sor_rb.cu — red-black SOR on the 5-point TV system of one refinement
-// level, `iterations` sweeps in one launch.  One solver body for two
-// systems, templated on NOP:
+// level of a batch of image pairs, `iterations` sweeps in one launch.  One
+// solver body for two systems, templated on NOP:
 //   NOP 1, scalar  (stereo, sor_coupled_slow_but_readable_DE, solver.c:428-466).
 //            Replaces of_dis_tpu/ops/pallas_kernels.py::_sor_scalar_kernel
 //            (launched there by sor_scalar_rb_pallas), with its rounding:
@@ -24,7 +24,7 @@
 // on the L2 latency of its neighbour loads, which resident warps hide.
 //
 // The body is templated on NOP and on its barrier (launch.cuh) and launched
-// three ways, picked per level by ops/kernels.py::sor_variant:
+// three ways, picked per level and batch size by ops/kernels.py::sor_variant:
 //   block    one CTA, __syncthreads(), the fields in its shared memory;
 //   cluster  2-16 CTAs of one thread-block cluster, cluster.sync(), the
 //            fields in device memory (L2);
@@ -46,6 +46,16 @@
 // the same operations.  The variants give the same bits: a half-step reads
 // only the other colour's values of the step before.  No atomics, so
 // bit-reproducible.
+//
+// The pair axis (the batch dimension of a vmapped pallas_call): a pair's
+// CTAs share blockIdx.y and solve that pair's slices of the batched fields,
+// with its own B * NOP fields of scratch; PAIRS registers-held pixel pairs
+// per thread count within one image pair.  block: grid (1, B); cluster:
+// grid (n_ctas, B), clusters of (n_ctas, 1, 1), never spanning two pairs;
+// grid: the resident CTAs split among the pairs, gridDim = (max(1,
+// resident / B'), B') with B' = min(B, resident), the pairs past B' taken in
+// rounds, and a CTA without a pair in the last round solves no pixels and
+// reaches every grid.sync().
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -77,17 +87,40 @@ constexpr int CTA_THREADS = 256;
 constexpr int MAX_CTAS = 16;
 
 struct Params {
-  const float *du_in, *dv_in;              // (h, w) start fields (dv_in: coupled)
-  const float *a11, *a12, *a22, *b1, *b2;  // (h, w) system (a12, a22, b2: coupled)
-  const float *wh, *wv;                    // (h, w) edge weights
-  float *du, *dv;                          // (h, w) outputs (dv: coupled)
-  float* field;  // NOP * (h + 2) * row_stride(w) floats: the fields (cluster, grid)
-  int h, w, iterations;
+  const float *du_in, *dv_in;              // (B, h, w) start fields (dv_in: coupled)
+  const float *a11, *a12, *a22, *b1, *b2;  // (B, h, w) system (a12, a22, b2: coupled)
+  const float *wh, *wv;                    // (B, h, w) edge weights
+  float *du, *dv;                          // (B, h, w) outputs (dv: coupled)
+  float* field;  // B * NOP * (h + 2) * row_stride(w) floats: the fields (cluster, grid)
+  int h, w, iterations, pairs;
   float omega;
   unsigned long long w_inv;  // launch::row_inverse(w)
 };
 
 __host__ __device__ constexpr int row_stride(int w) { return (w + 3) / 2 * 2; }  // even, >= w + 2
+
+// P moved to image pair b: its slice of every field, and its NOP fields of
+// scratch.  A pointer the solver does not read (nullptr) stays so.
+template <int NOP>
+__device__ __forceinline__ Params pair_params(const Params& P, int b) {
+  const size_t o = size_t(b) * P.h * P.w;
+  Params Q = P;
+  Q.du_in += o;
+  Q.a11 += o;
+  Q.b1 += o;
+  Q.wh += o;
+  Q.wv += o;
+  Q.du += o;
+  if constexpr (NOP == 2) {
+    Q.dv_in += o;
+    Q.a12 += o;
+    Q.a22 += o;
+    Q.b2 += o;
+    Q.dv += o;
+  }
+  if (Q.field != nullptr) Q.field += size_t(b) * NOP * (P.h + 2) * row_stride(P.w);
+  return Q;
+}
 
 // The read-only system of one pixel.
 struct ScalarSys {
@@ -127,7 +160,7 @@ __device__ __forceinline__ int colour_offset(int ot, int c, int rs) {
 }
 
 // Neighbour sum of a field (up, left, down, right; 0 outside the level), in
-// sor_rb.cuh::nb's order.
+// the order of sor_rb.cuh's neighbour sums.
 __device__ __forceinline__ float nb_sum(const ScalarSys& s, float fu, float fl, float fd,
                                         float fr) {
   return s.wvu * fu + s.whl * fl + s.wv * fd + s.wh * fr;
@@ -284,12 +317,12 @@ constexpr int sor_threads() {
 }
 
 // Half-step of colour C over a thread's pairs: those it keeps (sys, ot,
-// live) and, in the grid variant (TAIL), those past PAIRS per thread (from
-// `tail`, stride apart).
+// owned) and, in the grid variant (TAIL), those past PAIRS per thread (from
+// `tail`, stride apart, below npairs).
 template <int NOP, int C, class Sync, int PAIRS>
 __device__ __forceinline__ void half_step(const Params& P, float* f, int fsize,
                                           const Sys<NOP> (&sys)[2][PAIRS], const int (&ot)[PAIRS],
-                                          unsigned live, int tail, int stride) {
+                                          unsigned owned, int tail, int stride, int npairs) {
   constexpr bool TAIL = std::is_same<Sync, GridSync>::value;
   const int rs = row_stride(P.w);
   // The coupled solver's fields in device memory: hiding f's value at each
@@ -299,12 +332,11 @@ __device__ __forceinline__ void half_step(const Params& P, float* f, int fsize,
   if constexpr (NOP == 2 && !Sync::SHARED_FIELDS) asm volatile("" : "+l"(f));
 #pragma unroll
   for (int i = 0; i < PAIRS; ++i) {
-    if ((live >> (2 * i)) == 0) break;  // a thread's pairs are a prefix of its slots
-    if ((live >> (2 * i + C)) & 1u)
+    if ((owned >> (2 * i)) == 0) break;  // a thread's pairs are a prefix of its slots
+    if ((owned >> (2 * i + C)) & 1u)
       update<NOP>(f, fsize, sys[C][i], colour_offset(ot[i], C, rs), P.omega, rs);
   }
   if constexpr (TAIL) {
-    const int npairs = (P.h + 1) / 2 * P.w;
     for (int j = tail; j < npairs; j += stride) {
       const Pair q = pair_of(P, j);
       int k, y;
@@ -315,9 +347,11 @@ __device__ __forceinline__ void half_step(const Params& P, float* f, int fsize,
   }
 }
 
-// The solver body: `iterations` sweeps of the level in one launch.
+// The solver body: `iterations` sweeps of one image pair's level (P moved to
+// that pair).  A CTA without an image pair (live false) solves no pixels and
+// reaches every barrier.
 template <int NOP, class Sync>
-__device__ __forceinline__ void solve(const Params& P) {
+__device__ __forceinline__ void solve(const Params& P, bool live) {
   constexpr int PAIRS = pairs_per_thread<NOP>();
   extern __shared__ float sm[];
   float* f;
@@ -327,7 +361,7 @@ __device__ __forceinline__ void solve(const Params& P) {
     f = P.field;
   }
   const int fsize = (P.h + 2) * row_stride(P.w);  // floats of one field
-  const int npairs = (P.h + 1) / 2 * P.w;
+  const int npairs = live ? (P.h + 1) / 2 * P.w : 0;
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   // Only the grid variant takes levels of more than PAIRS pairs per thread;
@@ -337,9 +371,11 @@ __device__ __forceinline__ void solve(const Params& P) {
 
   Sys<NOP> sys[2][PAIRS];  // [colour][pair]
   int ot[PAIRS];           // field offset of each pair's top pixel
-  unsigned live = 0;       // bit 2 i + c: pair i has a pixel of colour c (top: always)
+  unsigned owned = 0;      // bit 2 i + c: pair i has a pixel of colour c (top: always)
+  if (live) {
 #pragma unroll
-  for (int c = 0; c < NOP; ++c) zero_border(f + c * fsize, P.h, P.w, first, stride);
+    for (int c = 0; c < NOP; ++c) zero_border(f + c * fsize, P.h, P.w, first, stride);
+  }
 #pragma unroll
   for (int i = 0; i < PAIRS; ++i) {
     const int j = first + i * stride;
@@ -349,7 +385,7 @@ __device__ __forceinline__ void solve(const Params& P) {
       sys[0][i] = s.red;
       sys[1][i] = s.black;
       ot[i] = q.ot;
-      live |= (unsigned(s.has_red) | unsigned(s.has_black) << 1) << (2 * i);
+      owned |= (unsigned(s.has_red) | unsigned(s.has_black) << 1) << (2 * i);
     }
   }
   if constexpr (TAIL) {
@@ -359,10 +395,10 @@ __device__ __forceinline__ void solve(const Params& P) {
   Sync::sync();
   for (int sweep = 0; sweep < P.iterations; ++sweep) {
     if (sweep > 0) {
-      half_step<NOP, 0, Sync>(P, f, fsize, sys, ot, live, tail, stride);
+      half_step<NOP, 0, Sync>(P, f, fsize, sys, ot, owned, tail, stride, npairs);
       Sync::sync();
     }
-    half_step<NOP, 1, Sync>(P, f, fsize, sys, ot, live, tail, stride);
+    half_step<NOP, 1, Sync>(P, f, fsize, sys, ot, owned, tail, stride, npairs);
     if (sweep < P.iterations - 1) Sync::sync();
   }
 
@@ -377,13 +413,24 @@ __device__ __forceinline__ void solve(const Params& P) {
   }
 }
 
+// The image pairs of a CTA: blockIdx.y, then + gridDim.y while pairs are
+// left (rounds, in the grid variant only); every CTA runs the same rounds.
+template <int NOP, class Sync>
+__device__ __forceinline__ void solve_pairs(const Params& P) {
+  for (int r0 = 0; r0 < P.pairs; r0 += gridDim.y) {
+    const int b = r0 + blockIdx.y;
+    const bool live = b < P.pairs;
+    solve<NOP, Sync>(pair_params<NOP>(P, live ? b : 0), live);
+  }
+}
+
 // The kernels, one per solver and barrier.  The coupled grid variant asks
 // for two resident CTAs per SM (at most 128 registers a thread): twice the
 // warps of one hide more of the L2 latency of its half-steps, and hold
 // twice the pairs in registers.
 template <class Sync>
 __global__ void __launch_bounds__(sor_threads<Sync>()) sor_scalar_kernel(const Params P) {
-  solve<1, Sync>(P);
+  solve_pairs<1, Sync>(P);
 }
 
 template <class Sync>
@@ -394,7 +441,7 @@ constexpr int coupled_min_ctas() {
 template <class Sync>
 __global__ void __launch_bounds__(sor_threads<Sync>(), coupled_min_ctas<Sync>())
     sor_coupled_kernel(const Params P) {
-  solve<2, Sync>(P);
+  solve_pairs<2, Sync>(P);
 }
 
 template <int NOP, class Sync>
@@ -404,8 +451,8 @@ auto kernel_of() {
 
 int threads_for(int pairs, int most) { return min(most, max(32, (pairs + 31) / 32 * 32)); }
 
-// One CTA, the fields in its shared memory; a level of more than PAIRS pairs
-// per thread is refused.
+// One CTA per image pair, the fields in its shared memory; a level of more
+// than PAIRS pixel pairs per thread is refused.
 template <int NOP>
 cudaError_t launch_block(const Params& P, cudaStream_t stream) {
   auto kernel = kernel_of<NOP, BlockSync>();
@@ -417,7 +464,7 @@ cudaError_t launch_block(const Params& P, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   const size_t smem = size_t(NOP) * (P.h + 2) * row_stride(P.w) * sizeof(float);
   if (smem > size_t(max_smem)) return cudaErrorInvalidValue;
-  kernel<<<1, threads_for(npairs, BLOCK_THREADS), smem, stream>>>(P);
+  kernel<<<dim3(1, P.pairs), threads_for(npairs, BLOCK_THREADS), smem, stream>>>(P);
   return cudaGetLastError();
 }
 
@@ -440,7 +487,7 @@ cudaError_t launch_cluster(const Params& P, int n_ctas, cudaStream_t stream) {
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_ctas);
+  cfg.gridDim = dim3(n_ctas, P.pairs);
   cfg.blockDim = dim3(threads_for((npairs + n_ctas - 1) / n_ctas, CTA_THREADS));
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -455,17 +502,19 @@ template <int NOP>
 cudaError_t launch_grid(const Params& P, cudaStream_t stream) {
   auto kernel = kernel_of<NOP, GridSync>();
   constexpr int threads = sor_threads<GridSync>();
-  static launch::PerDevice resident;
+  static launch::PerDevice kept;
   int sms = 0, per_sm = 0;
   cudaError_t e = launch::sm_count(&sms);
-  if (e == cudaSuccess) e = launch::blocks_per_sm(kernel, threads, 0, resident, &per_sm);
+  if (e == cudaSuccess) e = launch::blocks_per_sm(kernel, threads, 0, kept, &per_sm);
   if (e != cudaSuccess) return e;
+  const int resident = per_sm * sms;  // CTAs resident at once (the cooperative limit)
+  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int npairs = (P.h + 1) / 2 * P.w;
-  const int grid = min((npairs + threads - 1) / threads, per_sm * sms);
-  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int by = min(P.pairs, resident);  // image pairs at once; the rest in rounds
+  const int bx = max(1, min((npairs + threads - 1) / threads, resident / by));
   Params args = P;
   void* kargs[] = {&args};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(bx, by),
                                   dim3(threads), kargs, 0, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -475,7 +524,8 @@ enum Variant { BLOCK = 0, CLUSTER = 1, GRID = 2 };
 
 template <int NOP>
 int launch_variant(const Params& P, int variant, int n_ctas, void* stream) {
-  if (P.h < 1 || P.w < 1 || P.iterations < 1) return int(cudaErrorInvalidValue);
+  if (P.pairs < 1 || P.pairs > 65535 || P.h < 1 || P.w < 1 || P.iterations < 1)
+    return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == BLOCK) return int(launch_block<NOP>(P, s));
   if (variant == CLUSTER) return int(launch_cluster<NOP>(P, n_ctas, s));
@@ -487,25 +537,27 @@ int launch_variant(const Params& P, int variant, int n_ctas, void* stream) {
 
 // Each returns the cudaError_t of the launch (0 on success).  The wrappers
 // (ops/kernels.py::sor_scalar, ::sor_coupled) have checked shapes, types
-// and devices, and give outputs distinct from the inputs.  variant 0 block,
-// 1 cluster of n_ctas CTAs, 2 grid; field is scratch of NOP * (h + 2) *
-// (w + 3) floats for the cluster and grid variants (unused by the block
-// variant).
+// and devices, and give outputs distinct from the inputs.  Every field holds
+// `pairs` image pairs.  variant 0 block, 1 cluster of n_ctas CTAs per pair,
+// 2 grid; field is scratch of pairs * NOP * (h + 2) * (w + 3) floats for the
+// cluster and grid variants (unused by the block variant).
 extern "C" int sor_scalar_launch(const float* du_in, const float* a11, const float* b1,
                                  const float* wh, const float* wv, float* du, float* field,
-                                 int h, int w, int iterations, float omega, int variant,
-                                 int n_ctas, void* stream) {
+                                 int pairs, int h, int w, int iterations, float omega,
+                                 int variant, int n_ctas, void* stream) {
   const Params P{du_in, nullptr, a11, nullptr, nullptr, b1, nullptr, wh, wv, du, nullptr, field,
-                 h, w, iterations, omega, launch::row_inverse(w)};
+                 h, w, iterations, pairs, omega, launch::row_inverse(w)};
   return launch_variant<1>(P, variant, n_ctas, stream);
 }
 
 extern "C" int sor_coupled_launch(const float* du_in, const float* dv_in, const float* a11,
                                   const float* a12, const float* a22, const float* b1,
                                   const float* b2, const float* wh, const float* wv, float* du,
-                                  float* dv, float* field, int h, int w, int iterations,
-                                  float omega, int variant, int n_ctas, void* stream) {
+                                  float* dv, float* field, int pairs, int h, int w,
+                                  int iterations, float omega, int variant, int n_ctas,
+                                  void* stream) {
   const Params P{du_in, dv_in, a11, a12, a22, b1, b2, wh, wv, du, dv, field,
-                 h, w, iterations, omega, launch::row_inverse(w)};
+                 h, w, iterations, pairs, omega, launch::row_inverse(w)};
   return launch_variant<2>(P, variant, n_ctas, stream);
 }
+

@@ -32,38 +32,39 @@ def result_absw(res: SearchResult, cfg: DISConfig) -> torch.Tensor:
 
 
 def _col2im_accumulate(
-    vals: torch.Tensor,  # (N, psz*psz, K) per-patch per-footprint-pixel values
+    vals: torch.Tensor,  # (..., N, psz*psz, K) per-patch per-footprint-pixel values
     geo: LevelGeometry,
     cfg: DISConfig,
 ) -> torch.Tensor:
-    """Overlap-add of patch footprints onto the (h, w, K) image.
+    """Overlap-add of patch footprints onto the (..., h, w, K) images.
 
     Inner footprint offset j splits as dj*steps + a (d = ceil(psz/steps)),
     and every (dj, di) block lands on the same steps-phase lattice, so the
     overlap-add is d^2 shifted zero-pads of the patch grid, summed in a
     fixed order.  Out-of-image footprint pixels are dropped by the final
-    crop, matching the reference's bounds check."""
+    crop, matching the reference's bounds check.  The leading (batch) dims
+    of vals fold into one axis ahead of the channels."""
     psz = cfg.patch_size
     steps = cfg.steps
-    n, pp, k = vals.shape
+    lead, k = vals.shape[:-3], vals.shape[-1]
     noph, nopw = geo.noph, geo.nopw
     # Patch index order is i = x*noph + y (patchgrid.cpp:61-75).
-    grid = vals.reshape(nopw, noph, psz, psz, k).permute(1, 0, 2, 3, 4)
+    grid = vals.reshape(-1, nopw, noph, psz, psz, k).permute(0, 2, 1, 3, 4, 5)
     d = -(-psz // steps)
     pin = d * steps
     if pin != psz:
         grid = F.pad(grid, (0, 0, 0, pin - psz, 0, pin - psz))
-    v = grid.reshape(noph, nopw, d, steps, d, steps, k)
-    v = v.permute(6, 0, 3, 1, 5, 2, 4)  # (k, noph, a, nopw, b, dj, di)
+    v = grid.reshape(-1, noph, nopw, d, steps, d, steps, k)
+    v = v.permute(0, 7, 1, 4, 2, 6, 3, 5)  # (B, k, noph, a, nopw, b, dj, di)
     fj, fi = noph + d - 1, nopw + d - 1
     acc = None
     for dj in range(d):
         for di in range(d):
             t = F.pad(v[..., dj, di], (0, 0, di, d - 1 - di, 0, 0, dj, d - 1 - dj))
             acc = t if acc is None else acc + t
-    full = acc.reshape(k, fj * steps, fi * steps)
+    full = acc.reshape(-1, k, fj * steps, fi * steps)
     # crop the (d*steps - psz) zero-pad tail back off
-    full = full[:, : (noph - 1) * steps + psz, : (nopw - 1) * steps + psz]
+    full = full[..., : (noph - 1) * steps + psz, : (nopw - 1) * steps + psz]
 
     # full row r corresponds to image row r + offh + lb (same for cols).
     lb = -(psz // 2)
@@ -72,17 +73,17 @@ def _col2im_accumulate(
     oy = offh + lb
     ox = offw + lb
     h, w = geo.h, geo.w
-    fh, fw = full.shape[1], full.shape[2]
+    fh, fw = full.shape[-2], full.shape[-1]
     pad_top = max(oy, 0)
     pad_left = max(ox, 0)
     crop_top = max(-oy, 0)
     crop_left = max(-ox, 0)
     out = F.pad(
-        full[:, crop_top:, crop_left:],
+        full[..., crop_top:, crop_left:],
         (pad_left, max(w - (fw - crop_left) - pad_left, 0),
          pad_top, max(h - (fh - crop_top) - pad_top, 0)),
-    )[:, :h, :w]
-    return out.permute(1, 2, 0)  # (h, w, K)
+    )[..., :h, :w]
+    return out.permute(0, 2, 3, 1).reshape(*lead, h, w, k)
 
 
 def aggregate_flow_dense(
@@ -91,22 +92,19 @@ def aggregate_flow_dense(
     cfg: DISConfig,
     bw_result=None,
 ) -> torch.Tensor:
-    """Densify per-patch flow into an (h, w, nop) field."""
+    """Densify per-patch flow (..., N, nop) into an (..., h, w, nop) field."""
     if bw_result is not None:
         raise NotImplementedError("forward-backward merge is not ported yet")
-    w, h = geo.w, geo.h
     nop = cfg.nop
-    npx = w * h
 
-    absw = result_absw(result, cfg)  # (N, psz²)
+    absw = result_absw(result, cfg)  # (..., N, psz²)
     # stack [w, w*u, w*v] and overlap-add in one pass
-    contrib = absw[:, :, None] * result.p[:, None, :]  # (N, psz², nop)
-    vals = torch.cat([absw[:, :, None], contrib], dim=2)
-    acc = _col2im_accumulate(vals, geo, cfg)  # (h, w, 1+nop)
-    we = acc[..., 0].reshape(npx)
-    flow = acc[..., 1:].reshape(npx, nop)
+    contrib = absw[..., None] * result.p[..., None, :]  # (..., N, psz², nop)
+    vals = torch.cat([absw[..., None], contrib], dim=-1)
+    acc = _col2im_accumulate(vals, geo, cfg)  # (..., h, w, 1+nop)
+    we = acc[..., :1]
+    flow = acc[..., 1:]
 
     # Normalize (patchgrid.cpp:377-394); untouched pixels stay 0.
     safe = torch.where(we > 0.0, we, 1.0)
-    flow = torch.where((we > 0.0)[:, None], flow / safe[:, None], 0.0)
-    return flow.reshape(h, w, nop)
+    return torch.where(we > 0.0, flow / safe, 0.0)

@@ -16,9 +16,11 @@ runs csrc/refine_inner.cu (flow) or csrc/sor_rb.cu's scalar SOR (stereo).
 Final: upscale by 2^sc_l (INTER_LINEAR, flow values scaled) and crop the
 divisibility padding (run_dense.cpp:406-414).
 
-Entry points run on CUDA unless the caller passes device="cpu"; without a
-GPU they raise.  The forward-backward merge is not ported yet and raises
-NotImplementedError.
+Every stage runs on a batch of pairs (B, Hp, Wp, C), each kernel launch
+taking all B; `dis_raw` runs one pair as a batch of one, and
+parallel/batch.py::batched_flow runs B.  Entry points run on CUDA unless
+the caller passes device="cpu"; without a GPU they raise.  The
+forward-backward merge is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def _stage_templates(im_a, dx_a, dy_a, pt_ref, cfg: DISConfig, pad: int) -> Patc
     On levels that kernels.search_route sends to the whole-level search they
     happen inside that kernel, and this stage forwards the level images
     (hes None); elsewhere they are built here for gn_search."""
-    hp, wp, c = im_a.shape
+    hp, wp, c = im_a.shape[-3:]
     psz = cfg.patch_size
     route = kernels.search_route(hp, wp, c, pt_ref.shape[0], psz,
                                  min(2 * psz + 2, hp), min(2 * psz + 2, wp))
@@ -73,13 +75,17 @@ def _stage_templates(im_a, dx_a, dy_a, pt_ref, cfg: DISConfig, pad: int) -> Patc
     return build_templates(im_a, dx_a, dy_a, pt_ref, cfg, pad)
 
 
-def _stage_init(flow_prev: Optional[torch.Tensor], coarse_idx, n: int,
+def _stage_init(flow_prev: Optional[torch.Tensor], coarse_idx, b: int, n: int,
                 cfg: DISConfig, device) -> torch.Tensor:
     """Stage 'pinit': InitializeFromCoarserOF (patchgrid.cpp:195-211),
-    a 2x NN upsample of the coarser flow (zeros at the coarsest scale)."""
+    a 2x NN upsample of the coarser flow (zeros at the coarsest scale), for
+    b pairs: (b, n, nop).  flow_prev is (b, h, w, nop), or (h, w, nop)
+    shared by the batch (a warm start)."""
     if flow_prev is None:
-        return torch.zeros((n, cfg.nop), dtype=torch.float32, device=device)
-    return 2.0 * flow_prev.reshape(-1, cfg.nop)[coarse_idx]
+        return torch.zeros((b, n, cfg.nop), dtype=torch.float32, device=device)
+    h, w = flow_prev.shape[-3:-1]
+    init = 2.0 * flow_prev.reshape(-1, h * w, cfg.nop)[:, coarse_idx]
+    return init.expand(b, n, cfg.nop).contiguous()
 
 
 def _stage_optimize(tmpl: PatchTemplates, im_b, pt_ref, p_init, cfg: DISConfig,
@@ -105,21 +111,24 @@ def _stage_refine(flow, im_a_raw, im_b_raw, sl: int, cfg: DISConfig, camlr: int)
 
 def _level_flow(im_a, dx_a, dy_a, im_b, flow_prev, sl: int, w: int, h: int,
                 cfg: DISConfig, im_a_raw, im_b_raw):
-    """One pyramid level: the flow at this scale, (h, w, nop)."""
+    """One pyramid level of a batch: the flow at this scale, (B, h, w, nop)."""
     pad = cfg.patch_size
     geo, pt_ref, coarse_idx = _grid_tensors(w, h, cfg, im_a.device)
     tmpl = _stage_templates(im_a, dx_a, dy_a, pt_ref, cfg, pad)
-    p_init = _stage_init(flow_prev, coarse_idx, geo.n_patches, cfg, im_a.device)
+    p_init = _stage_init(flow_prev, coarse_idx, im_a.shape[0], geo.n_patches, cfg,
+                         im_a.device)
     res = _stage_optimize(tmpl, im_b, pt_ref, p_init, cfg, w, h, pad)
     flow = _stage_densify(res, geo, cfg)
     return _stage_refine(flow, im_a_raw, im_b_raw, sl, cfg, cfg.camlr)
 
 
 def _dis_padded(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False):
-    """Run DIS on images already padded to divisibility by 2^sc_f.
+    """Run DIS on a batch of pairs (B, H, W, C), already padded to
+    divisibility by 2^sc_f.  init_flow, at scale sc_f+1, is (B, h, w, nop)
+    or (h, w, nop) shared by the batch.
 
-    Returns flow at scale sc_l: (H/2^sc_l, W/2^sc_l, nop)."""
-    h, w = img1.shape[:2]
+    Returns flow at scale sc_l: (B, H/2^sc_l, W/2^sc_l, nop)."""
+    h, w = img1.shape[1:3]
     if w % (1 << cfg.sc_f) or h % (1 << cfg.sc_f):
         raise ValueError(f"image dims {h}x{w} not divisible by 2^{cfg.sc_f}")
     pad = cfg.patch_size
@@ -130,8 +139,8 @@ def _dis_padded(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool 
     flow = init_flow  # sized for scale sc_f+1 when provided (oflow.cpp:217-220)
     for sl in range(cfg.sc_f, cfg.sc_l - 1, -1):
         lw, lh = w >> sl, h >> sl
-        raw1 = im1s[sl][pad:-pad, pad:-pad]
-        raw2 = im2s[sl][pad:-pad, pad:-pad]
+        raw1 = im1s[sl][:, pad:-pad, pad:-pad]
+        raw2 = im2s[sl][:, pad:-pad, pad:-pad]
         flow = _level_flow(im1s[sl], dx1s[sl], dy1s[sl], im2s[sl], flow, sl, lw, lh,
                            cfg, raw1, raw2)
     return flow
@@ -143,40 +152,57 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
-def dis_raw(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False,
-            device=None) -> torch.Tensor:
-    """Full driver on arbitrary-size (H, W[, C]) inputs (numpy arrays or
-    tensors): divisibility padding, pyramid, coarse-to-fine, final upscale +
-    crop (run_dense.cpp:296-414).  Returns an (H, W, nop) float32 tensor on
-    `device` (CUDA unless given)."""
+def _prepare(img1, img2, cfg: DISConfig, device, lead: int):
+    """Validated (..., H, W, C) float32 tensors of a pair (lead 0) or a batch
+    (lead 1) on the resolved device, and that device."""
     cfg.validate()
     if cfg.use_fb_merge:
         raise NotImplementedError("the forward-backward merge is not ported yet")
     dev = resolve_device(device)
     img1 = _as_tensor(img1, dev)
     img2 = _as_tensor(img2, dev)
-    if img1.ndim == 2:
+    if img1.ndim == lead + 2:
         img1 = img1[..., None]
         img2 = img2[..., None]
-    if img1.shape[2] != cfg.channels:
-        raise ValueError(f"expected {cfg.channels} channels, got {img1.shape[2]}")
+    if img1.ndim != lead + 3:
+        raise ValueError(f"expected {'(B, ' if lead else '('}H, W[, C]) images, "
+                         f"got shape {tuple(img1.shape)}")
+    if img1.shape[-1] != cfg.channels:
+        raise ValueError(f"expected {cfg.channels} channels, got {img1.shape[-1]}")
     if img1.shape != img2.shape:
         raise ValueError(f"image shapes differ: {tuple(img1.shape)} vs {tuple(img2.shape)}")
-    h0, w0 = img1.shape[:2]
+    return img1, img2, dev
+
+
+def _dis_batch(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False):
+    """A batch (B, H, W, C) of arbitrary size: divisibility padding,
+    pyramid, coarse-to-fine, final upscale + crop (run_dense.cpp:296-414).
+    Returns (B, H, W, nop)."""
+    h0, w0 = img1.shape[1:3]
     scf = 1 << cfg.sc_f
     t, _, l, _ = pyr.divisibility_padding(h0, w0, scf)
     p1 = pyr.pad_to_divisible(img1, scf)
     p2 = pyr.pad_to_divisible(img2, scf)
-    init = None if init_flow is None else _as_tensor(init_flow, dev)
 
-    flow = _dis_padded(p1, p2, cfg, init, gradmag_input)
+    flow = _dis_padded(p1, p2, cfg, init_flow, gradmag_input)
 
     # Upscale to scale 0 if the finest computed scale is coarser
     # (run_dense.cpp:406-411): multiply values by 2^sc_l, INTER_LINEAR resize.
     if cfg.sc_l != 0:
-        flow = pyr.resize_bilinear(flow * float(1 << cfg.sc_l), p1.shape[0], p1.shape[1])
+        flow = pyr.resize_bilinear(flow * float(1 << cfg.sc_l), p1.shape[1], p1.shape[2])
     # Crop divisibility padding (run_dense.cpp:414).
-    return flow[t : t + h0, l : l + w0]
+    return flow[:, t : t + h0, l : l + w0]
+
+
+def dis_raw(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False,
+            device=None) -> torch.Tensor:
+    """Full driver on arbitrary-size (H, W[, C]) inputs (numpy arrays or
+    tensors): divisibility padding, pyramid, coarse-to-fine, final upscale +
+    crop (run_dense.cpp:296-414), as a batch of one pair.  Returns an (H, W,
+    nop) float32 tensor on `device` (CUDA unless given)."""
+    img1, img2, dev = _prepare(img1, img2, cfg, device, 0)
+    init = None if init_flow is None else _as_tensor(init_flow, dev)
+    return _dis_batch(img1[None], img2[None], cfg, init, gradmag_input)[0]
 
 
 def dis_flow(img1, img2, cfg: Optional[DISConfig] = None, **kw) -> torch.Tensor:

@@ -2,7 +2,9 @@
 PyTorch port of of_dis_tpu/models/inverse_search.py.
 
 Patches are a batch axis: all N patches of a pyramid level live in (N, ...)
-tensors, and the reference's per-patch early-exit loop (PatClass,
+tensors, and a batch of image pairs adds a leading axis, (B, N, ...), with
+the patch centres pt_ref (N, 2) shared (the grid depends only on the level's
+shape).  The reference's per-patch early-exit loop (PatClass,
 patch.cpp:119-284) becomes a fixed `max_iter + 1`-trip loop whose updates
 are masked by a per-patch convergence flag.  A patch never moves more than
 psz/2 from its start (outlier reset, patch.cpp:198-208), so every bilinear
@@ -29,6 +31,7 @@ patch's initial position is already out of bounds, pweight is defined as
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -43,39 +46,40 @@ class PatchTemplates(NamedTuple):
     With `hes` None (the driver's form) tmp/dx/dy hold the padded level
     images instead: the level search extracts templates itself."""
 
-    tmp: torch.Tensor    # (N, psz, psz, C) templates (mean-normalised if patch_norm)
-    dx: torch.Tensor     # (N, psz, psz, C) x-gradients
-    dy: torch.Tensor     # (N, psz, psz, C) y-gradients
-    hes: Optional[torch.Tensor]  # (N, 3) [H00, H01, H11] for flow, (N, 1) [H00] for stereo
+    tmp: torch.Tensor    # (..., N, psz, psz, C) templates (mean-normalised if patch_norm)
+    dx: torch.Tensor     # (..., N, psz, psz, C) x-gradients
+    dy: torch.Tensor     # (..., N, psz, psz, C) y-gradients
+    hes: Optional[torch.Tensor]  # (..., N, 3) [H00, H01, H11] flow, (..., N, 1) [H00] stereo
 
 
 class SearchResult(NamedTuple):
-    p: torch.Tensor          # (N, nop) final displacement parameters
-    pt: torch.Tensor         # (N, 2) final query position (pt_ref + displacement)
-    pweight: Optional[torch.Tensor]  # (N, psz, psz, C) |residual|, or None
+    """Per patch, with the images' leading (batch) dims in front of N."""
+    p: torch.Tensor          # (..., N, nop) final displacement parameters
+    pt: torch.Tensor         # (..., N, 2) final query position (pt_ref + displacement)
+    pweight: Optional[torch.Tensor]  # (..., N, psz, psz, C) |residual|, or None
                                      # when absw came back from the kernel
-    converged: torch.Tensor  # (N,) bool
-    absw: Optional[torch.Tensor] = None   # (N, psz*psz) densification weights
-    iters: Optional[torch.Tensor] = None  # (N,) int32 GN iterations run
+    converged: torch.Tensor  # (..., N) bool
+    absw: Optional[torch.Tensor] = None   # (..., N, psz*psz) densification weights
+    iters: Optional[torch.Tensor] = None  # (..., N) int32 GN iterations run
 
 
 def _patch_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of each patch (N, psz, psz, C) -> (N,), in the order of the CUDA
-    kernels' WarpLayout::sum (csrc/gn_machine.cuh): channels per pixel, then
-    a butterfly over each group of 32 pixels (zeros past psz^2), then the
-    groups in order."""
-    n, psz, _, c = x.shape
+    """Sum of each patch (..., psz, psz, C) -> (...), in the order of the
+    CUDA kernels' WarpLayout::sum (csrc/gn_machine.cuh): channels per pixel,
+    then a butterfly over each group of 32 pixels (zeros past psz^2), then
+    the groups in order."""
+    lead, psz, c = x.shape[:-3], x.shape[-3], x.shape[-1]
     v = x[..., 0]
     for k in range(1, c):
         v = v + x[..., k]
     npix = psz * psz
     nt = -(-npix // 32) * 32
-    v = F.pad(v.reshape(n, npix), (0, nt - npix)).reshape(n, nt // 32, 32)
+    v = F.pad(v.reshape(*lead, npix), (0, nt - npix)).reshape(*lead, nt // 32, 32)
     for half in (16, 8, 4, 2, 1):
         v = v[..., :half] + v[..., half:2 * half]
-    s = v[:, 0, 0]
+    s = v[..., 0, 0]
     for q in range(1, nt // 32):
-        s = s + v[:, q, 0]
+        s = s + v[..., q, 0]
     return s
 
 
@@ -108,13 +112,27 @@ def _patch_index(rows: torch.Tensor, cols: torch.Tensor, wp: int) -> torch.Tenso
 
 
 def _gather(img: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """img (Hp, Wp, C), idx (N, a, b) flat pixel indices -> (N, a, b, C)."""
-    c = img.shape[2]
+    """img (..., Hp, Wp, C) flattened over all its pixels, idx (P, a, b)
+    flat pixel indices into it -> (P, a, b, C)."""
+    c = img.shape[-1]
     return img.reshape(-1, c)[idx.reshape(-1)].reshape(idx.shape + (c,))
 
 
+def _n_pairs(img: torch.Tensor) -> int:
+    """Image pairs in a batch of images (..., Hp, Wp, C)."""
+    return math.prod(img.shape[:-3])
+
+
+def _pair_base(img: torch.Tensor, n: int) -> torch.Tensor:
+    """(B*n,) flat index of the first pixel of each patch's image pair, for
+    images (..., Hp, Wp, C) of B pairs with n patches each."""
+    hp, wp = img.shape[-3:-1]
+    pairs = torch.arange(_n_pairs(img), device=img.device)
+    return pairs.repeat_interleave(n) * (hp * wp)
+
+
 def build_templates(
-    im_a: torch.Tensor,    # (Hp, Wp, C) padded reference image
+    im_a: torch.Tensor,    # (..., Hp, Wp, C) padded reference images
     dx_a: torch.Tensor,
     dy_a: torch.Tensor,
     pt_ref: torch.Tensor,  # (N, 2)
@@ -127,15 +145,17 @@ def build_templates(
     template gradients."""
     psz = cfg.patch_size
     lb = -(psz // 2)
+    n = pt_ref.shape[0]
     jj = torch.arange(psz, device=im_a.device)
     cy = torch.floor(pt_ref[:, 1] + 0.5).long() + pad + lb
     cx = torch.floor(pt_ref[:, 0] + 0.5).long() + pad + lb
-    idx = _patch_index(cy[:, None] + jj, cx[:, None] + jj, im_a.shape[1])
-    tmp = _gather(im_a, idx)
-    dx = _gather(dx_a, idx)
-    dy = _gather(dy_a, idx)
+    idx = _patch_index(cy[:, None] + jj, cx[:, None] + jj, im_a.shape[-2])
+    pairs = im_a.shape[:-3]
+    idx = idx.repeat(_n_pairs(im_a), 1, 1) + _pair_base(im_a, n)[:, None, None]
+    tmp, dx, dy = (_gather(a, idx).reshape(*pairs, n, psz, psz, a.shape[-1])
+                   for a in (im_a, dx_a, dy_a))
     if cfg.patch_norm:  # patch.cpp:330-331
-        tmp = tmp - _div(_patch_sum(tmp), cfg.novals)[:, None, None, None]
+        tmp = tmp - _div(_patch_sum(tmp), cfg.novals)[..., None, None, None]
     h00 = _patch_sum(dx * dx)
     if cfg.nop == 2:
         h01 = _patch_sum(dx * dy)
@@ -143,10 +163,10 @@ def build_templates(
         # Singular guard: if det == 0, bump the diagonal (patch.cpp:78-82).
         det = h00 * h11 - h01 * h01
         bump = torch.where(det == 0.0, 1e-10, 0.0)
-        hes = torch.stack([h00 + bump, h01, h11 + bump], dim=1)
+        hes = torch.stack([h00 + bump, h01, h11 + bump], dim=-1)
     else:
         bump = torch.where(h00 == 0.0, 1e-10, 0.0)
-        hes = (h00 + bump)[:, None]
+        hes = (h00 + bump)[..., None]
     return PatchTemplates(tmp=tmp, dx=dx, dy=dy, hes=hes)
 
 
@@ -167,10 +187,10 @@ def _out_of_bounds(pt: torch.Tensor, w: int, h: int, psz: int) -> torch.Tensor:
 
 
 def optimize_level(
-    im_b: torch.Tensor,     # (Hp, Wp, C) padded target image
+    im_b: torch.Tensor,     # (..., Hp, Wp, C) padded target images
     tmpl: PatchTemplates,
-    pt_ref: torch.Tensor,   # (N, 2)
-    p_init: torch.Tensor,   # (N, nop)
+    pt_ref: torch.Tensor,   # (N, 2), shared by the batch
+    p_init: torch.Tensor,   # (..., N, nop)
     cfg: DISConfig,
     w: int,
     h: int,
@@ -180,7 +200,9 @@ def optimize_level(
     """Run all patches of one level to convergence (PatClass::OptimizeIter +
     OptimizeStart + OptimizeComputeErrImg, patch.cpp:119-284) as a fixed
     `max_iter + 1`-trip loop with per-patch masking.  Trip 0 is
-    OptimizeStart: delta_p forced to 0, no clamp or reset.
+    OptimizeStart: delta_p forced to 0, no clamp or reset.  The patches of
+    every pair run as one flat axis of B*N; a patch gathers from its own
+    pair's image.
 
     camlr overrides cfg.camlr for the stereo sign clamp."""
     if camlr is None:
@@ -188,21 +210,28 @@ def optimize_level(
     psz = cfg.patch_size
     nop = cfg.nop
     novals = float(cfg.novals)
-    n = pt_ref.shape[0]
-    hp, wp = im_b.shape[:2]
+    pairs = im_b.shape[:-3]
+    n_pt = pt_ref.shape[0]
+    pair0 = _pair_base(im_b, n_pt)  # first pixel of each patch's pair
+    n = pair0.shape[0]
+    hp, wp = im_b.shape[-3:-1]
     dev = im_b.device
     lb = -(psz // 2)
     sy = min(2 * psz + 2, hp)
     sx = min(2 * psz + 2, wp)
-    T = tmpl.tmp
+    T = tmpl.tmp.reshape(n, psz, psz, -1)
+    tdx = tmpl.dx.reshape(T.shape)
+    tdy = tmpl.dy.reshape(T.shape)
+    hes = tmpl.hes.reshape(n, -1)
+    pt_ref = pt_ref.repeat(_n_pairs(im_b), 1)
 
     if nop == 2:
-        h00, h01, h11 = tmpl.hes[:, 0], tmpl.hes[:, 1], tmpl.hes[:, 2]
+        h00, h01, h11 = hes[:, 0], hes[:, 1], hes[:, 2]
         det = h00 * h11 - h01 * h01
     else:
-        h00 = tmpl.hes[:, 0]
+        h00 = hes[:, 0]
 
-    p_in = p_init
+    p_in = p_init.reshape(n, nop)
     pt_st = _param_to_pt(pt_ref, p_in, nop)
     oob0 = _out_of_bounds(pt_st, w, h, psz)
     # Window bases (padded coords), clipped into the image.
@@ -234,7 +263,7 @@ def optimize_level(
 
         def tap(yy, my, xx, mx):
             m = (my[:, :, None] * mx[:, None, :])[..., None]
-            return _gather(im_b, _patch_index(yy, xx, wp)) * m
+            return _gather(im_b, _patch_index(yy, xx, wp) + pair0[:, None, None]) * m
 
         col0 = (1.0 - ry) * tap(y0, my0, x0, mx0) + ry * tap(y1, my1, x0, mx0)
         col1 = (1.0 - ry) * tap(y0, my0, x1, mx1) + ry * tap(y1, my1, x1, mx1)
@@ -263,7 +292,7 @@ def optimize_level(
     outlier_sq = cfg.outlier_thresh * cfg.outlier_thresh
 
     f32 = dict(dtype=torch.float32, device=dev)
-    p_iter = p_init
+    p_iter = p_in
     pt_iter = pt_st
     pweight = torch.zeros_like(T)
     pdiff = torch.zeros_like(T)
@@ -282,9 +311,9 @@ def optimize_level(
         if first:
             delta_p = torch.zeros_like(p_iter)
         else:
-            b0 = _patch_sum(tmpl.dx * pdiff)
+            b0 = _patch_sum(tdx * pdiff)
             if nop == 2:
-                b1 = _patch_sum(tmpl.dy * pdiff)
+                b1 = _patch_sum(tdy * pdiff)
                 du = (h11 * b0 - h01 * b1) / det
                 dv = (h00 * b1 - h01 * b0) / det
                 delta_p = torch.stack([du, dv], dim=1)
@@ -340,19 +369,22 @@ def optimize_level(
         cnt = torch.where(active, cnt_n, cnt)
         converged = torch.where(active, conv_n, converged)
 
-    return SearchResult(p=p_iter, pt=pt_iter, pweight=pweight,
-                        converged=converged, iters=cnt)
+    return SearchResult(p=p_iter.reshape(*pairs, n_pt, nop),
+                        pt=pt_iter.reshape(*pairs, n_pt, 2),
+                        pweight=pweight.reshape(*pairs, n_pt, *pweight.shape[1:]),
+                        converged=converged.reshape(*pairs, n_pt),
+                        iters=cnt.reshape(*pairs, n_pt))
 
 
 def _abs_weights(pweight: torch.Tensor, cfg: DISConfig) -> torch.Tensor:
-    """absw per footprint pixel: (N, psz*psz) (patchgrid.cpp:253-260); the
-    channels are added in order, as the level-search kernel adds them."""
-    n, psz, c = pweight.shape[0], pweight.shape[1], pweight.shape[3]
-    pw = torch.clamp(pweight, min=cfg.minerrval)  # (N, psz, psz, C)
+    """absw per footprint pixel: (..., N, psz*psz) (patchgrid.cpp:253-260);
+    the channels are added in order, as the level-search kernel adds them."""
+    lead, psz, c = pweight.shape[:-3], pweight.shape[-3], pweight.shape[-1]
+    pw = torch.clamp(pweight, min=cfg.minerrval)  # (..., N, psz, psz, C)
     s = pw[..., 0]
     for k in range(1, c):
         s = s + pw[..., k]
-    return (1.0 / s).reshape(n, psz * psz)
+    return (1.0 / s).reshape(*lead, psz * psz)
 
 
 def level_search_reference(ima, dxa, dya, imb, pt_ref, p_init, cfg: DISConfig,
@@ -369,6 +401,6 @@ def gn_search_reference(imb, tmpl: PatchTemplates, pt_ref, p_init, cfg: DISConfi
                         w: int, h: int, pad: int,
                         camlr: Optional[int] = None) -> SearchResult:
     """Plain version of the GN-search kernel: the vectorised trip loop over
-    prebuilt templates; pweight (N, psz, psz, C) comes back, as on the JAX
+    prebuilt templates; pweight (..., N, psz, psz, C) comes back, as on the JAX
     package's GN route (of_dis_tpu/models/inverse_search.py:342-353)."""
     return optimize_level(imb, tmpl, pt_ref, p_init, cfg, w, h, pad, camlr=camlr)

@@ -22,9 +22,14 @@ is clamped to the camera's sign.
 
 Inner-iteration count scales with pyramid level: n_inner = tv_innerit *
 (level+1) (refine_variational.cpp:36).
+
+Fields are (..., h, w) and images (..., h, w, C): leading dims are a batch
+of image pairs, and every step counts its axes from the end.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -56,19 +61,19 @@ def _shift(x: torch.Tensor, dim: int, from_before: bool) -> torch.Tensor:
 
 
 def _up(x):     # x[j-1, i]
-    return _shift(x, 0, True)
+    return _shift(x, -2, True)
 
 
 def _down(x):   # x[j+1, i]
-    return _shift(x, 0, False)
+    return _shift(x, -2, False)
 
 
 def _left(x):   # x[j, i-1]
-    return _shift(x, 1, True)
+    return _shift(x, -1, True)
 
 
 def _right(x):  # x[j, i+1]
-    return _shift(x, 1, False)
+    return _shift(x, -1, False)
 
 
 # ---------------------------------------------------------------------------
@@ -79,27 +84,22 @@ def _edge_taps(n: int, r: int, device) -> torch.Tensor:
     return torch.arange(-r, n + r, device=device).clamp_(0, n - 1)
 
 
-def _conv_h(img: torch.Tensor, coeffs) -> torch.Tensor:
-    """Horizontal 1-D convolution dst[x] = sum_k c[k] src[x+k-r], replicate."""
+def _conv(img: torch.Tensor, coeffs, dim: int) -> torch.Tensor:
+    """1-D convolution along axis `dim` (counted from the end), dst[x] =
+    sum_k c[k] src[x+k-r], replicate borders."""
     r = len(coeffs) // 2
-    w = img.shape[1]
-    p = img[:, _edge_taps(w, r, img.device)]
+    n = img.shape[dim]
+    p = img.index_select(dim, _edge_taps(n, r, img.device))
     out = torch.zeros_like(img)
     for k, c in enumerate(coeffs):
         if c != 0.0:
-            out = out + c * p[:, k : k + w]
+            out = out + c * p.narrow(dim, k, n)
     return out
 
 
-def _conv_v(img: torch.Tensor, coeffs) -> torch.Tensor:
-    r = len(coeffs) // 2
-    h = img.shape[0]
-    p = img[_edge_taps(h, r, img.device)]
-    out = torch.zeros_like(img)
-    for k, c in enumerate(coeffs):
-        if c != 0.0:
-            out = out + c * p[k : k + h]
-    return out
+# The x and y axes of a field (..., h, w) and of an image (..., h, w, C).
+FIELD_XY = (-1, -2)
+IMAGE_XY = (-2, -3)
 
 
 # {1, -8, 0, 8, -1}/12 (refine_variational.cpp:45-46).
@@ -114,8 +114,9 @@ DERIV3 = (-0.5, 0.0, 0.5)
 
 def image_warp(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor):
     """Bilinear backward warp with clamp-to-edge taps and in-bounds mask
-    (image_warp, opticalflow_aux.c:16-60).  src (h, w, C); wx, wy (h, w)."""
-    h, w, c = src.shape
+    (image_warp, opticalflow_aux.c:16-60).  src (..., h, w, C); wx, wy
+    (..., h, w); each pair's taps read its own image."""
+    h, w, c = src.shape[-3:]
     dev = src.device
     jj = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
     ii = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
@@ -133,11 +134,15 @@ def image_warp(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor):
     dx = (xx - x)[..., None]
     dy = (yy - y)[..., None]
     flat = src.reshape(-1, c)
+    pair0 = (torch.arange(math.prod(src.shape[:-3]), device=dev) * (h * w)).reshape(
+        src.shape[:-3] + (1, 1))  # first pixel of each pair's image
+    y1 = y1 * w + pair0
+    y2 = y2 * w + pair0
     dst = (
-        flat[y1 * w + x1] * (1 - dx) * (1 - dy)
-        + flat[y1 * w + x2] * dx * (1 - dy)
-        + flat[y2 * w + x1] * (1 - dx) * dy
-        + flat[y2 * w + x2] * dx * dy
+        flat[y1 + x1] * (1 - dx) * (1 - dy)
+        + flat[y1 + x2] * dx * (1 - dy)
+        + flat[y2 + x1] * (1 - dx) * dy
+        + flat[y2 + x2] * dx * dy
     )
     return dst, mask
 
@@ -147,13 +152,14 @@ def get_derivatives(im1: torch.Tensor, im2w: torch.Tensor):
     (get_derivatives, opticalflow_aux.c:63-116)."""
     mean = 0.5 * (im1 + im2w)
     iz = im2w - im1
-    ix = _conv_h(mean, DERIV5)
-    iy = _conv_v(mean, DERIV5)
-    ixx = _conv_h(ix, DERIV5)
-    ixy = _conv_v(ix, DERIV5)
-    iyy = _conv_v(iy, DERIV5)
-    ixz = _conv_h(iz, DERIV5)
-    iyz = _conv_v(iz, DERIV5)
+    x, y = IMAGE_XY
+    ix = _conv(mean, DERIV5, x)
+    iy = _conv(mean, DERIV5, y)
+    ixx = _conv(ix, DERIV5, x)
+    ixy = _conv(ix, DERIV5, y)
+    iyy = _conv(iy, DERIV5, y)
+    ixz = _conv(iz, DERIV5, x)
+    iyz = _conv(iz, DERIV5, y)
     return ix, iy, iz, ixx, ixy, iyy, ixz, iyz
 
 
@@ -167,15 +173,16 @@ def compute_smoothness(uu, vv, quarter_alpha: float):
     Returns (horiz, vert): horiz[j,i] couples (j,i)<->(j,i+1) (last col 0),
     vert[j,i] couples (j,i)<->(j+1,i) (last row 0).  qa / sqrt(...) is one
     true division, as in the TPU and CUDA kernels."""
-    ux = _conv_h(uu, DERIV3)
-    uy = _conv_v(uu, DERIV3)
-    vx = _conv_h(vv, DERIV3)
-    vy = _conv_v(vv, DERIV3)
+    x, y = FIELD_XY
+    ux = _conv(uu, DERIV3, x)
+    uy = _conv(uu, DERIV3, y)
+    vx = _conv(vv, DERIV3, x)
+    vy = _conv(vv, DERIV3, y)
     s = _over(quarter_alpha, torch.sqrt(ux * ux + uy * uy + vx * vx + vy * vy + EPS_SMOOTH))
     horiz = s + _right(s)
-    horiz[:, -1] = 0.0
+    horiz[..., -1] = 0.0
     vert = s + _down(s)
-    vert[-1, :] = 0.0
+    vert[..., -1, :] = 0.0
     return horiz, vert
 
 
@@ -205,7 +212,7 @@ def compute_data(du, dv, mask, derivs, half_delta_over3: float,
     (opticalflow_aux.c:306-438) and compute_data_DE (:442-548, nop == 1,
     where dv contributions vanish and only a11/b1 are kept).
 
-    derivs are (h, w, C); du/dv/mask (h, w)."""
+    derivs are (..., h, w, C); du/dv/mask (..., h, w)."""
     ix, iy, iz, ixx, ixy, iyy, ixz, iyz = derivs
     c = ix.shape[-1]
     du3 = du[..., None]
@@ -262,6 +269,7 @@ def compute_data(du, dv, mask, derivs, half_delta_over3: float,
 # ---------------------------------------------------------------------------
 
 def _checkerboard(h: int, w: int, device) -> torch.Tensor:
+    """(h, w) red mask, (x + y) % 2 == 0; broadcasts over a batch."""
     jj = torch.arange(h, device=device)[:, None]
     ii = torch.arange(w, device=device)[None, :]
     return (ii + jj) % 2 == 0
@@ -275,7 +283,7 @@ def sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega
     TPU kernel rounds (of_dis_tpu/ops/pallas_kernels.py:69-82): the weights
     summed first, then omega / (a11 + sum) and omega / (a22 + sum), each one
     true division, so the two agree bit for bit."""
-    h, w = du.shape
+    h, w = du.shape[-2:]
     red = _checkerboard(h, w, du.device)
     sum_dpsis = _up(wv) + _left(wh) + wv + wh
     inv11 = _over(omega, a11 + sum_dpsis)
@@ -306,7 +314,7 @@ def sor_scalar_rb(du, a11, b1, wh, wv, iterations: int, omega: float):
     (of_dis_tpu/ops/pallas_kernels.py:1357-1365): omega / A11 first, then
     (1 - omega) du + that times B1.  omega / A11 is one true division, as
     the kernel divides, so the two agree bit for bit."""
-    h, w = du.shape
+    h, w = du.shape[-2:]
     red = _checkerboard(h, w, du.device)
     inv = _over(omega, a11 + _up(wv) + _left(wh) + wv + wh)
 
@@ -329,7 +337,8 @@ def sor_scalar_rb(du, a11, b1, wh, wv, iterations: int, omega: float):
 def refine_inner_reference(wx, wy, mask, derivs, n_inner: int, solver_it: int,
                            omega: float, qa: float, hd3: float, hg3: float):
     """Plain version of the refine-inner kernel: the step sequence of
-    of_dis_tpu/models/refine.py:388-410 (nop = 2)."""
+    of_dis_tpu/models/refine.py:388-410 (nop = 2); fields (..., h, w),
+    derivs (..., h, w, C)."""
     du = torch.zeros_like(wx)
     dv = torch.zeros_like(wx)
     uu, vv = wx, wy
@@ -345,15 +354,16 @@ def refine_inner_reference(wx, wy, mask, derivs, n_inner: int, solver_it: int,
 
 
 def refine_level(
-    flow: torch.Tensor,   # (h, w, nop)
-    im1: torch.Tensor,    # (h, w, C) unpadded level image
+    flow: torch.Tensor,   # (..., h, w, nop)
+    im1: torch.Tensor,    # (..., h, w, C) unpadded level images
     im2: torch.Tensor,
     level: int,
     cfg: DISConfig,
     camlr: int = 0,
 ) -> torch.Tensor:
     """One scale of variational refinement (RefLevelOF / RefLevelDE,
-    refine_variational.cpp:152-336).  camlr picks the stereo sign clamp."""
+    refine_variational.cpp:152-336) of a batch of pairs.  camlr picks the
+    stereo sign clamp."""
     n_inner = cfg.tv_innerit * (level + 1)   # refine_variational.cpp:36
     qa = 0.25 * cfg.tv_alpha
     hd3 = cfg.tv_delta * 0.5 / 3.0

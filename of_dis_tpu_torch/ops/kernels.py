@@ -6,6 +6,10 @@ raises.  There is no fallback from the kernel to the plain version on the
 card.  `launches` counts kernel launches (never plain-version calls), so a
 run can show that it went through the kernels.
 
+Every wrapper takes a batch of image pairs, a leading axis B on its images
+and fields, and launches once for all of them; given one pair's tensors
+(no leading axis) it launches a batch of one and returns one pair's.
+
 The plain versions live beside the step functions they compose
 (models/inverse_search.py::level_search_reference, ::gn_search_reference;
 models/refine.py::refine_inner_reference, ::sor_scalar_rb,
@@ -25,7 +29,7 @@ one warp per patch; `search_route` picks one of them per level.
 refine_inner and the two SOR solvers (sor_scalar, sor_coupled) each launch
 one kernel body with the barrier the level needs: `refine_variant` and
 `sor_variant` pick a single CTA, a thread-block cluster or a cooperative
-grid from the level's shape.
+grid from the level's shape and the number of pairs.
 """
 
 from __future__ import annotations
@@ -70,6 +74,16 @@ def _raise_on(rc: int, name: str) -> None:
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _one_pair(single: bool, ts):
+    """ts with a pair axis of one added (single) or as they are."""
+    return tuple(t[None] for t in ts) if single else tuple(ts)
+
+
+def _drop_pair(res):
+    """A SearchResult of a batch of one as one pair's."""
+    return type(res)(*(None if t is None else t[0] for t in res))
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +140,7 @@ def _level_search_lib():
     lib = build.load("level_search")
     fn = lib.level_search_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 16
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 17
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -134,9 +148,11 @@ def _level_search_lib():
 
 def level_search(ima, dxa, dya, imb, pt_ref, p_init, cfg: DISConfig,
                  w: int, h: int, pad: int, camlr: Optional[int] = None):
-    """Search one pyramid level: (Hp, Wp, C) padded level images ima, dxa,
-    dya (reference) and imb (target), pt_ref (N, 2), p_init (N, nop).
-    Returns a SearchResult with absw (N, psz²) and iters set."""
+    """Search one pyramid level of B pairs: (B, Hp, Wp, C) padded level
+    images ima, dxa, dya (reference) and imb (target), pt_ref (N, 2) shared
+    by the pairs, p_init (B, N, nop); or one pair's (Hp, Wp, C) images and
+    (N, nop) p_init.  Returns a SearchResult with absw (B, N, psz²) and
+    iters set (one pair's: (N, ...))."""
     from ..models.inverse_search import SearchResult, level_search_reference
 
     if ima.device.type == "cpu":
@@ -145,36 +161,39 @@ def level_search(ima, dxa, dya, imb, pt_ref, p_init, cfg: DISConfig,
         raise ValueError(f"level_search: unsupported device {ima.device}")
     if camlr is None:
         camlr = cfg.camlr
-    hp, wp, c = ima.shape
+    single = ima.ndim == 3
+    ima, dxa, dya, imb, p_init = _one_pair(single, (ima, dxa, dya, imb, p_init))
+    b, hp, wp, c = ima.shape
     n = pt_ref.shape[0]
     psz, nop = cfg.patch_size, cfg.nop
     if psz not in (8, 12) or c not in (1, 3) or n < 1:
         raise ValueError(f"level_search: unsupported psz={psz}, C={c}, N={n}")
     dev = ima.device
     for name, t in (("ima", ima), ("dxa", dxa), ("dya", dya), ("imb", imb)):
-        _check(name, t, (hp, wp, c), dev)
+        _check(name, t, (b, hp, wp, c), dev)
     _check("pt_ref", pt_ref, (n, 2), dev)
-    _check("p_init", p_init, (n, nop), dev)
+    _check("p_init", p_init, (b, n, nop), dev)
     sy = min(2 * psz + 2, hp)
     sx = min(2 * psz + 2, wp)
     f32 = dict(dtype=torch.float32, device=dev)
-    p = torch.empty((n, nop), **f32)
-    pt = torch.empty((n, 2), **f32)
-    absw = torch.empty((n, psz * psz), **f32)
-    conv = torch.empty((n,), dtype=torch.int32, device=dev)
-    iters = torch.empty((n,), dtype=torch.int32, device=dev)
+    p = torch.empty((b, n, nop), **f32)
+    pt = torch.empty((b, n, 2), **f32)
+    absw = torch.empty((b, n, psz * psz), **f32)
+    conv = torch.empty((b, n), dtype=torch.int32, device=dev)
+    iters = torch.empty((b, n), dtype=torch.int32, device=dev)
     fn = _level_search_lib()
     with torch.cuda.device(dev):
         rc = fn(
             _ptr(ima), _ptr(dxa), _ptr(dya), _ptr(imb), _ptr(pt_ref), _ptr(p_init),
             _ptr(p), _ptr(pt), _ptr(absw), _ptr(conv), _ptr(iters),
-            n, hp, wp, c, psz, nop, pad, w, h, sy, sx, *_search_consts(cfg, camlr),
+            n, b, hp, wp, c, psz, nop, pad, w, h, sy, sx, *_search_consts(cfg, camlr),
             _stream(dev),
         )
     _raise_on(rc, "level_search")
     launches["level_search"] += 1
-    return SearchResult(p=p, pt=pt, pweight=None, converged=conv.bool(), absw=absw,
-                        iters=iters)
+    res = SearchResult(p=p, pt=pt, pweight=None, converged=conv.bool(), absw=absw,
+                       iters=iters)
+    return _drop_pair(res) if single else res
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +204,7 @@ def _gn_search_lib():
     lib = build.load("gn_search")
     fn = lib.gn_search_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 16
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 17
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -193,11 +212,13 @@ def _gn_search_lib():
 
 def gn_search(imb, tmpl, pt_ref, p_init, cfg: DISConfig, w: int, h: int, pad: int,
               camlr: Optional[int] = None):
-    """Search one pyramid level from prebuilt PatchTemplates `tmpl` (tmp,
-    dx, dy (N, psz, psz, C); hes (N, 3) for flow, (N, 1) for stereo) in the
-    padded (Hp, Wp, C) target image imb; pt_ref (N, 2), p_init (N, nop).
-    Returns a SearchResult with pweight (N, psz, psz, C) and iters set."""
-    from ..models.inverse_search import SearchResult, gn_search_reference
+    """Search one pyramid level of B pairs from prebuilt PatchTemplates
+    `tmpl` (tmp, dx, dy (B, N, psz, psz, C); hes (B, N, 3) for flow, (B, N,
+    1) for stereo) in the padded (B, Hp, Wp, C) target images imb; pt_ref
+    (N, 2) shared by the pairs, p_init (B, N, nop); or one pair's, without
+    the leading B.  Returns a SearchResult with pweight (B, N, psz, psz, C)
+    and iters set (one pair's: (N, ...))."""
+    from ..models.inverse_search import PatchTemplates, SearchResult, gn_search_reference
 
     if imb.device.type == "cpu":
         return gn_search_reference(imb, tmpl, pt_ref, p_init, cfg, w, h, pad, camlr)
@@ -205,38 +226,42 @@ def gn_search(imb, tmpl, pt_ref, p_init, cfg: DISConfig, w: int, h: int, pad: in
         raise ValueError(f"gn_search: unsupported device {imb.device}")
     if camlr is None:
         camlr = cfg.camlr
-    hp, wp, c = imb.shape
+    single = imb.ndim == 3
+    imb, p_init, *fields = _one_pair(single, (imb, p_init) + tuple(tmpl))
+    tmpl = PatchTemplates(*fields)
+    b, hp, wp, c = imb.shape
     n = pt_ref.shape[0]
     psz, nop = cfg.patch_size, cfg.nop
     if psz not in (8, 12) or c not in (1, 3) or n < 1:
         raise ValueError(f"gn_search: unsupported psz={psz}, C={c}, N={n}")
     dev = imb.device
-    _check("imb", imb, (hp, wp, c), dev)
+    _check("imb", imb, (b, hp, wp, c), dev)
     for name, t in (("tmp", tmpl.tmp), ("dx", tmpl.dx), ("dy", tmpl.dy)):
-        _check(name, t, (n, psz, psz, c), dev)
-    _check("hes", tmpl.hes, (n, 3 if nop == 2 else 1), dev)
+        _check(name, t, (b, n, psz, psz, c), dev)
+    _check("hes", tmpl.hes, (b, n, 3 if nop == 2 else 1), dev)
     _check("pt_ref", pt_ref, (n, 2), dev)
-    _check("p_init", p_init, (n, nop), dev)
+    _check("p_init", p_init, (b, n, nop), dev)
     sy = min(2 * psz + 2, hp)
     sx = min(2 * psz + 2, wp)
     f32 = dict(dtype=torch.float32, device=dev)
-    p = torch.empty((n, nop), **f32)
-    pt = torch.empty((n, 2), **f32)
-    pweight = torch.empty((n, psz, psz, c), **f32)
-    conv = torch.empty((n,), dtype=torch.int32, device=dev)
-    iters = torch.empty((n,), dtype=torch.int32, device=dev)
+    p = torch.empty((b, n, nop), **f32)
+    pt = torch.empty((b, n, 2), **f32)
+    pweight = torch.empty((b, n, psz, psz, c), **f32)
+    conv = torch.empty((b, n), dtype=torch.int32, device=dev)
+    iters = torch.empty((b, n), dtype=torch.int32, device=dev)
     fn = _gn_search_lib()
     with torch.cuda.device(dev):
         rc = fn(
             _ptr(tmpl.tmp), _ptr(tmpl.dx), _ptr(tmpl.dy), _ptr(tmpl.hes), _ptr(imb),
             _ptr(pt_ref), _ptr(p_init),
             _ptr(p), _ptr(pt), _ptr(pweight), _ptr(conv), _ptr(iters),
-            n, hp, wp, c, psz, nop, pad, w, h, sy, sx, *_search_consts(cfg, camlr),
+            n, b, hp, wp, c, psz, nop, pad, w, h, sy, sx, *_search_consts(cfg, camlr),
             _stream(dev),
         )
     _raise_on(rc, "gn_search")
     launches["gn_search"] += 1
-    return SearchResult(p=p, pt=pt, pweight=pweight, converged=conv.bool(), iters=iters)
+    res = SearchResult(p=p, pt=pt, pweight=pweight, converged=conv.bool(), iters=iters)
+    return _drop_pair(res) if single else res
 
 
 def gn_search_occupancy(psz: int, c: int, nop: int) -> Tuple[int, int]:
@@ -269,6 +294,14 @@ _REFINE_MAX_CTAS = 16  # the largest cluster on an H100 (non-portable above 8)
 # The block variant keeps its scratch fields in shared memory: the largest
 # level whose fields fit in the 232,448 bytes an H100 block may use.
 _REFINE_BLOCK_CAPACITY_PX = 232448 // (4 * _REFINE_SCRATCH_FIELDS)
+# From _WIDE_BATCH pairs a launch on, clusters of more than
+# _WIDE_CLUSTER_CTAS CTAs (the portable size) lose to the grid: on an H100
+# at 56x128 (16 CTAs) the cluster took 109.6 µs at B = 16 and 165.9 at
+# B = 32 against the grid's 95.9 and 124.7, and won at B = 8 (62.6 vs
+# 74.0); at 28x64 (7 CTAs) it beat the block (61.8 vs 65.0 at B = 16, 64.1
+# vs 67.6 at B = 32) and the grid (72.1, 88.7) (PERF.md).
+_WIDE_BATCH = 16
+_WIDE_CLUSTER_CTAS = 8
 
 
 def refine_variants(h: int, w: int) -> Tuple[str, ...]:
@@ -284,17 +317,19 @@ def refine_cluster_ctas(h: int, w: int) -> int:
     return min(_REFINE_MAX_CTAS, max(2, -(-(h * w) // _REFINE_CTA_PX)))
 
 
-def refine_variant(h: int, w: int, c: int) -> Tuple[str, int]:
-    """How refine_inner launches for an (h, w, C) level: ("block", 1) one
-    CTA, ("cluster", n) one cluster of n CTAs, or ("grid", 0) a cooperative
-    grid.  Each is the barrier the level needs between phases and no
-    wider; the thresholds come from timing every variant on an H100 at
-    op2's and op4's level shapes (PERF.md).  C does not move them."""
+def refine_variant(h: int, w: int, c: int, b: int = 1) -> Tuple[str, int]:
+    """How refine_inner launches for an (h, w, C) level of b pairs:
+    ("block", 1) one CTA per pair, ("cluster", n) one cluster of n CTAs per
+    pair, or ("grid", 0) a cooperative grid.  Each is the barrier the level
+    needs between phases and no wider; the thresholds come from timing every
+    variant on an H100 at op2's and op4's level shapes (PERF.md).  C does
+    not move them."""
     px = h * w
     if px <= _REFINE_BLOCK_MAX_PX:
         return ("block", 1)
-    if px <= _REFINE_CLUSTER_MAX_PX:
-        return ("cluster", refine_cluster_ctas(h, w))
+    n = refine_cluster_ctas(h, w)
+    if px <= _REFINE_CLUSTER_MAX_PX and (b < _WIDE_BATCH or n <= _WIDE_CLUSTER_CTAS):
+        return ("cluster", n)
     return ("grid", 0)
 
 
@@ -302,7 +337,7 @@ def _refine_inner_lib():
     lib = build.load("refine_inner")
     fn = lib.refine_inner_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -311,9 +346,10 @@ def _refine_inner_lib():
 def refine_inner(wx, wy, mask, derivs, n_inner: int, solver_it: int,
                  omega: float, qa: float, hd3: float, hg3: float,
                  variant: Optional[str] = None):
-    """The whole TV inner loop of one level.  wx, wy, mask (h, w); derivs
-    the 8-tuple (ix, iy, iz, ixx, ixy, iyy, ixz, iyz) of (h, w, C).
-    Returns (uu, vv), each (h, w).  On the card the kernel launches as
+    """The whole TV inner loop of one level of B pairs.  wx, wy, mask (B, h,
+    w); derivs the 8-tuple (ix, iy, iz, ixx, ixy, iyy, ixz, iyz) of (B, h,
+    w, C); or one pair's, without the leading B.  Returns (uu, vv), each (B,
+    h, w) (one pair's: (h, w)).  On the card the kernel launches as
     refine_variant picks, or as `variant` (one of REFINE_VARIANTS) names;
     every variant that can take the level (refine_variants) gives the same
     bits."""
@@ -326,37 +362,39 @@ def refine_inner(wx, wy, mask, derivs, n_inner: int, solver_it: int,
                                       omega, qa, hd3, hg3)
     if wx.device.type != "cuda":
         raise ValueError(f"refine_inner: unsupported device {wx.device}")
-    h, w = wx.shape
+    single = wx.ndim == 2
+    wx, wy, mask, *derivs = _one_pair(single, (wx, wy, mask) + tuple(derivs))
+    b, h, w = wx.shape
     c = derivs[0].shape[-1]
     if c not in (1, 3) or len(derivs) != 8 or n_inner < 1 or solver_it < 1:
         raise ValueError(f"refine_inner: unsupported C={c}, n_inner={n_inner}, "
                          f"solver_it={solver_it}")
     dev = wx.device
     for name, t in (("wx", wx), ("wy", wy), ("mask", mask)):
-        _check(name, t, (h, w), dev)
+        _check(name, t, (b, h, w), dev)
     for k, t in enumerate(derivs):
-        _check(f"derivs[{k}]", t, (h, w, c), dev)
+        _check(f"derivs[{k}]", t, (b, h, w, c), dev)
     if variant is None:
-        variant, n_ctas = refine_variant(h, w, c)
+        variant, n_ctas = refine_variant(h, w, c, b)
     elif variant not in refine_variants(h, w):
         raise ValueError(f"refine_inner: variant {variant!r} cannot take a {h}x{w} level")
     else:
         n_ctas = refine_cluster_ctas(h, w) if variant == "cluster" else 0
-    uu = torch.empty((h, w), dtype=torch.float32, device=dev)
+    uu = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     vv = torch.empty_like(uu)
-    scratch = torch.empty((_REFINE_SCRATCH_FIELDS, h, w), dtype=torch.float32, device=dev)
+    scratch = torch.empty((_REFINE_SCRATCH_FIELDS, b, h, w), dtype=torch.float32, device=dev)
     fn = _refine_inner_lib()
     with torch.cuda.device(dev):
         rc = fn(
             _ptr(wx), _ptr(wy), _ptr(mask), *[_ptr(t) for t in derivs],
             _ptr(uu), _ptr(vv), _ptr(scratch),
-            h, w, c, int(n_inner), int(solver_it),
+            b, h, w, c, int(n_inner), int(solver_it),
             float(omega), float(qa), float(hd3), float(hg3),
             REFINE_VARIANTS.index(variant), n_ctas, _stream(dev),
         )
     _raise_on(rc, f"refine_inner ({variant})")
     launches["refine_inner"] += 1
-    return uu, vv
+    return (uu[0], vv[0]) if single else (uu, vv)
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +412,7 @@ def _sor_lib(name: str, argtypes):
 def _check_fields(name: str, fields, iterations: int) -> torch.device:
     dev = fields[0].device
     shape = fields[0].shape
-    if len(shape) != 2 or iterations < 1:
+    if len(shape) != 3 or iterations < 1:
         raise ValueError(f"{name}: unsupported shape {tuple(shape)}, iterations={iterations}")
     for k, t in enumerate(fields):
         _check(f"{name} field {k}", t, shape, dev)
@@ -401,6 +439,12 @@ _SOR_MAX_CTAS = 16
 # coupled cluster won up to 64x128 (4,096, one pair a thread) and lost to
 # the grid from 72x128 (4,608) (PERF.md).
 _SOR_MAX_PAIRS = {1: (2048, 6144), 2: (1536, 4096)}
+# From this many pairs a launch on, the solvers' clusters queue on the card:
+# on an H100 at 56x128 the scalar cluster took 11.6 µs at B = 2 and 18.3 at
+# B = 8 (grid 14.0, 14.1; block 15.0, 15.1), the coupled one 12.6 and 20.4
+# (grid 14.3, 14.8); from _WIDE_BATCH on the scalar block beat the grid
+# (B = 16: 15.1 vs 16.3; B = 32: 15.2 vs 20.7) (PERF.md).
+_SOR_CLUSTER_BATCH = 8
 
 
 def _sor_pairs(h: int, w: int) -> int:
@@ -426,29 +470,38 @@ def sor_cluster_ctas(h: int, w: int, nop: int = 1) -> int:
     return min(_SOR_MAX_CTAS, max(2, -(-_sor_pairs(h, w) // _SOR_CTA_THREADS)))
 
 
-def sor_variant(h: int, w: int, nop: int = 1) -> Tuple[str, int]:
+def sor_variant(h: int, w: int, nop: int = 1, b: int = 1) -> Tuple[str, int]:
     """How the nop solver (1 sor_scalar, 2 sor_coupled) launches for an (h,
-    w) level: ("block", 1) one CTA, ("cluster", n) one cluster of n CTAs, or
-    ("grid", 0) a cooperative grid: the barrier the level needs between
-    half-steps and no wider; the thresholds come from timing every variant
-    on an H100 (PERF.md)."""
+    w) level of b pairs: ("block", 1) one CTA per pair, ("cluster", n) one
+    cluster of n CTAs per pair, or ("grid", 0) a cooperative grid: the
+    barrier the level needs between half-steps and no wider; the thresholds
+    come from timing every variant on an H100 (PERF.md)."""
     pairs = _sor_pairs(h, w)
     block_max, cluster_max = _SOR_MAX_PAIRS[nop]
     if pairs <= block_max:
         return ("block", 1)
-    if pairs <= cluster_max:
+    if pairs > cluster_max:
+        return ("grid", 0)
+    if b < _SOR_CLUSTER_BATCH:
         return ("cluster", sor_cluster_ctas(h, w, nop))
+    # b pairs' clusters queue up on the card: the block where it can take
+    # the level and the batch is wide, else the grid
+    if b >= _WIDE_BATCH and "block" in sor_variants(h, w, nop):
+        return ("block", 1)
     return ("grid", 0)
 
 
 def _sor_launch(name: str, nop: int, fields, iterations: int, omega: float,
                 variant: Optional[str]):
     """Launch csrc/sor_rb.cu's nop solver on the card: fields are its
-    inputs, (du[, dv], system..., wh, wv); returns its nop outputs."""
+    inputs, (du[, dv], system..., wh, wv), each (B, h, w) or one pair's (h,
+    w); returns its nop outputs, of the inputs' shape."""
+    single = fields[0].ndim == 2
+    fields = _one_pair(single, fields)
     dev = _check_fields(name, fields, iterations)
-    h, w = fields[0].shape
+    b, h, w = fields[0].shape
     if variant is None:
-        variant, n_ctas = sor_variant(h, w, nop)
+        variant, n_ctas = sor_variant(h, w, nop, b)
     elif variant not in sor_variants(h, w, nop):
         raise ValueError(f"{name}: variant {variant!r} cannot take a {h}x{w} level")
     else:
@@ -458,24 +511,25 @@ def _sor_launch(name: str, nop: int, fields, iterations: int, omega: float,
     # row stride (<= w + 3) with a zero border; the block variant keeps them
     # in shared memory.
     field = None if variant == "block" else torch.empty(
-        (nop * (h + 2) * (w + 3),), dtype=torch.float32, device=dev)
+        (b * nop * (h + 2) * (w + 3),), dtype=torch.float32, device=dev)
     fn = _sor_lib(f"{name}_launch", [ctypes.c_void_p] * (len(fields) + nop + 1)
-                  + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
+                  + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2
                   + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         rc = fn(*[_ptr(t) for t in fields], *[_ptr(t) for t in outs],
                 None if field is None else _ptr(field),
-                h, w, int(iterations), float(omega), SOR_VARIANTS.index(variant), n_ctas,
+                b, h, w, int(iterations), float(omega), SOR_VARIANTS.index(variant), n_ctas,
                 _stream(dev))
     _raise_on(rc, f"{name} ({variant})")
     launches[name] += 1
-    return outs
+    return [o[0] for o in outs] if single else outs
 
 
 def sor_scalar(du, a11, b1, wh, wv, iterations: int, omega: float,
                variant: Optional[str] = None):
     """`iterations` red-black sweeps of the scalar (stereo) SOR; all fields
-    (h, w).  Returns the new du (h, w).  On the card the kernel launches as
+    (B, h, w), or one pair's (h, w).  Returns the new du, of their shape.
+    On the card the kernel launches as
     sor_variant picks, or as `variant` (one of SOR_VARIANTS) names; every
     variant that can take the level (sor_variants) gives the same bits."""
     if variant is not None and variant not in SOR_VARIANTS:
@@ -492,7 +546,8 @@ def sor_scalar(du, a11, b1, wh, wv, iterations: int, omega: float,
 def sor_coupled(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega: float,
                 variant: Optional[str] = None):
     """`iterations` red-black sweeps of the coupled (flow) SOR; all fields
-    (h, w).  Returns the new (du, dv).  On the card the kernel launches as
+    (B, h, w), or one pair's (h, w).  Returns the new (du, dv), of their
+    shape.  On the card the kernel launches as
     sor_variant(h, w, nop=2) picks, or as `variant` (one of SOR_VARIANTS)
     names; every variant that can take the level (sor_variants(h, w, 2))
     gives the same bits."""

@@ -13,8 +13,9 @@ that shape the numerics (ConstructImgPyramide, run_dense.cpp:130-178):
   - Final flow upscale = cv::resize INTER_LINEAR with half-pixel centers
     (run_dense.cpp:406-411), written out as its formula.
 
-All functions take channels-last float32 tensors (H, W, C) and work on the
-tensor's own device.
+All functions take channels-last float32 tensors (..., H, W, C): any
+leading dims are a batch of image pairs, and each image is computed as it
+would be alone.  They work on the tensor's own device.
 """
 
 from __future__ import annotations
@@ -25,12 +26,14 @@ import torch
 
 
 def box_average(img: torch.Tensor, k: int) -> torch.Tensor:
-    """Non-overlapping k x k box average; k divides H and W."""
-    h, w, c = img.shape
+    """Non-overlapping k x k box average; k divides H and W.  The batch is
+    folded into the rows, so the reduction sees one image's layout and
+    sums each box in the order it sums it for one image alone."""
+    lead, (h, w, c) = img.shape[:-3], img.shape[-3:]
     if h % k or w % k:
         raise ValueError(f"dims {h}x{w} not divisible by {k}")
-    s = img.reshape(h // k, k, w // k, k, c).sum(dim=(1, 3))
-    return s * (1.0 / (k * k))
+    s = img.reshape(-1, k, w // k, k, c).sum(dim=(1, 3))
+    return s.reshape(*lead, h // k, w // k, c) * (1.0 / (k * k))
 
 
 def downsample_half(img: torch.Tensor) -> torch.Tensor:
@@ -45,13 +48,13 @@ def _edge_index(n: int, before: int, after: int, device) -> torch.Tensor:
 
 def _reflect101_pad(img: torch.Tensor, r: int) -> torch.Tensor:
     """BORDER_REFLECT_101 (gfedcb|abcdefgh|gfedcba), OpenCV's BORDER_DEFAULT."""
-    h, w = img.shape[:2]
+    h, w = img.shape[-3:-1]
 
     def idx(n):
         i = torch.arange(-r, n + r, device=img.device).abs()
         return torch.where(i > n - 1, 2 * (n - 1) - i, i)
 
-    return img[idx(h)][:, idx(w)]
+    return img[..., idx(h), :, :][..., idx(w), :]
 
 
 def sobel(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -61,10 +64,10 @@ def sobel(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     (run_dense.cpp:156-157).  Separable: smooth [1,2,1] x diff [-1,0,1].
     """
     p = _reflect101_pad(img, 1)
-    diff_x = p[:, 2:] - p[:, :-2]
-    smooth_x = p[:, :-2] + 2.0 * p[:, 1:-1] + p[:, 2:]
-    dx = (diff_x[:-2] + 2.0 * diff_x[1:-1] + diff_x[2:]) * 0.125
-    dy = (smooth_x[2:] - smooth_x[:-2]) * 0.125
+    diff_x = p[..., 2:, :] - p[..., :-2, :]
+    smooth_x = p[..., :-2, :] + 2.0 * p[..., 1:-1, :] + p[..., 2:, :]
+    dx = (diff_x[..., :-2, :, :] + 2.0 * diff_x[..., 1:-1, :, :] + diff_x[..., 2:, :, :]) * 0.125
+    dy = (smooth_x[..., 2:, :, :] - smooth_x[..., :-2, :, :]) * 0.125
     return dx, dy
 
 
@@ -75,9 +78,15 @@ def gradient_magnitude(img: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(dx * dx + dy * dy)
 
 
+def _pad_edges(img: torch.Tensor, t: int, b: int, l: int, r: int) -> torch.Tensor:
+    """Edge-replicating padding of the (H, W) axes of (..., H, W, C)."""
+    h, w = img.shape[-3:-1]
+    rows = _edge_index(h, t, b, img.device)
+    return img[..., rows, :, :][..., _edge_index(w, l, r, img.device), :]
+
+
 def pad_replicate(img: torch.Tensor, pad: int) -> torch.Tensor:
-    h, w = img.shape[:2]
-    return img[_edge_index(h, pad, pad, img.device)][:, _edge_index(w, pad, pad, img.device)]
+    return _pad_edges(img, pad, pad, pad, pad)
 
 
 def pad_zero(img: torch.Tensor, pad: int) -> torch.Tensor:
@@ -93,10 +102,10 @@ def divisibility_padding(h: int, w: int, divisor: int) -> Tuple[int, int, int, i
 
 
 def pad_to_divisible(img: torch.Tensor, divisor: int) -> torch.Tensor:
-    h, w = img.shape[:2]
+    h, w = img.shape[-3:-1]
     t, b, l, r = divisibility_padding(h, w, divisor)
     if t or b or l or r:
-        img = img[_edge_index(h, t, b, img.device)][:, _edge_index(w, l, r, img.device)]
+        img = _pad_edges(img, t, b, l, r)
     return img
 
 
@@ -144,7 +153,7 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     src = (dst + 0.5) * (in/out) - 0.5, taps clamped to the image
     (run_dense.cpp:406-411 uses this for the final flow upscale).
     """
-    in_h, in_w, _ = img.shape
+    in_h, in_w = img.shape[-3:-1]
     dev = img.device
     fy = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) * (in_h / out_h) - 0.5
     fx = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) * (in_w / out_w) - 0.5
@@ -154,8 +163,8 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     x1 = (x0 + 1).clamp(max=in_w - 1)
     wy = (fy - y0.float()).clamp(0.0, 1.0)[:, None, None]
     wx = (fx - x0.float()).clamp(0.0, 1.0)[None, :, None]
-    r0 = img[y0]
-    r1 = img[y1]
-    top = r0[:, x0] * (1 - wx) + r0[:, x1] * wx
-    bot = r1[:, x0] * (1 - wx) + r1[:, x1] * wx
+    r0 = img[..., y0, :, :]
+    r1 = img[..., y1, :, :]
+    top = r0[..., x0, :] * (1 - wx) + r0[..., x1, :] * wx
+    bot = r1[..., x0, :] * (1 - wx) + r1[..., x1, :] * wx
     return top * (1 - wy) + bot * wy

@@ -297,3 +297,129 @@ def test_wrappers_reject_bad_inputs(cuda):
         kernels.level_search(*bad)
     with pytest.raises(ValueError):
         kernels.level_search(*args[:6], dataclasses.replace(cfg, patch_size=10), *args[7:])
+
+
+# ---------------------------------------------------------------------------
+# The pair axis: a batched launch equals a launch per pair, bit for bit
+# ---------------------------------------------------------------------------
+
+def _search_batch(cfg, c, b, device):
+    """b distinct pairs' level-1 search inputs: padded images (b, Hp, Wp, C),
+    the shared centres, seeded starts (b, N, nop)."""
+    pad = cfg.patch_size
+    pairs = [_smooth_pair(c=c, seed=10 + i) for i in range(b)]
+    stack = [torch.as_tensor(np.stack([p[k] for p in pairs]), device=device) for k in (0, 1)]
+    im1s, dx1s, dy1s = pyr.build_pyramid(stack[0], 2, pad)
+    im2s, _, _ = pyr.build_pyramid(stack[1], 2, pad)
+    lw, lh = pairs[0][0].shape[1] >> 1, pairs[0][0].shape[0] >> 1
+    geo = level_geometry(lw, lh, cfg)
+    p0 = np.random.RandomState(b).randn(b, geo.n_patches, cfg.nop).astype(np.float32) * 1.5
+    return (im1s[1], dx1s[1], dy1s[1], im2s[1], torch.as_tensor(geo.pt_ref, device=device),
+            torch.as_tensor(p0, device=device), cfg, lw, lh, pad)
+
+
+def _split(out, i):
+    """Pair i of a batched kernel output (tensor, tuple or SearchResult)."""
+    if isinstance(out, torch.Tensor):
+        return out[i]
+    return [None if t is None else t[i] for t in out]
+
+
+def _assert_batched_equals_per_pair(launch, batched_args, pair_args, b):
+    out = launch(*batched_args)
+    for i in range(b):
+        one = launch(*pair_args(i))
+        got, want = _split(out, i), one
+        if isinstance(want, torch.Tensor):
+            got, want = [got], [want]
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert torch.equal(g, w), (i, k, float((g.float() - w.float()).abs().max()))
+
+
+BATCHES = [1, 2, 7, 32]
+
+
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("mode,c,psz", [("flow", 1, 8), ("flow", 3, 12), ("stereo", 1, 8)])
+def test_search_kernels_batched_equal_per_pair(cuda, b, mode, c, psz):
+    """level_search and gn_search over b distinct pairs in one launch."""
+    cfg = DISConfig(mode=mode, channels=c, sc_f=1, sc_l=0, max_iter=8, min_iter=2,
+                    patch_size=psz, overlap=0.4 if psz == 8 else 0.75).validate()
+    ima, dxa, dya, imb, pt_ref, p0, _, lw, lh, pad = _search_batch(cfg, c, b, cuda)
+    rest = (cfg, lw, lh, pad)
+    _assert_batched_equals_per_pair(
+        kernels.level_search, (ima, dxa, dya, imb, pt_ref, p0) + rest,
+        lambda i: (ima[i], dxa[i], dya[i], imb[i], pt_ref, p0[i]) + rest, b)
+    tmpl = build_templates(ima, dxa, dya, pt_ref, cfg, pad)
+    _assert_batched_equals_per_pair(
+        kernels.gn_search, (imb, tmpl, pt_ref, p0) + rest,
+        lambda i: (imb[i], type(tmpl)(*(t[i] for t in tmpl)), pt_ref, p0[i]) + rest, b)
+    assert kernels.level_search(ima, dxa, dya, imb, pt_ref, p0, *rest).p.shape == p0.shape
+
+
+def _refine_batch(h, w, c, b, device):
+    args = [_refine_args(h, w, c, 2, device) for _ in range(b)]
+    rng = np.random.RandomState(b)
+    for i, a in enumerate(args):  # each pair its own fields
+        args[i] = (a[0] + float(rng.randn()), a[1] * float(1 + rng.rand()), a[2],
+                   tuple(d * float(1 + rng.rand()) for d in a[3])) + a[4:]
+    stack = tuple(torch.stack([a[k] for a in args]) for k in range(3))
+    derivs = tuple(torch.stack([a[3][k] for a in args]) for k in range(8))
+    return stack + (derivs,) + args[0][4:], args
+
+
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_refine_inner_batched_equal_per_pair(cuda, b, c):
+    """Every variant at 28x64 (all three can take it) over b distinct pairs."""
+    batched, pairs = _refine_batch(28, 64, c, b, cuda)
+    for v in kernels.refine_variants(28, 64):
+        _assert_batched_equals_per_pair(
+            lambda *a: kernels.refine_inner(*a, variant=v), batched, lambda i: pairs[i], b)
+
+
+def _sor_batch(h, w, b, device):
+    systems = [_sor_system(h, w, device, seed=h * w + i) for i in range(b)]
+    return {k: torch.stack([s[k] for s in systems]) for k in systems[0]}
+
+
+SCALAR = ("du", "a11", "b1", "wh", "wv")
+COUPLED = ("du", "dv", "a11", "a12", "a22", "b1", "b2", "wh", "wv")
+
+
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("nop", [1, 2])
+def test_sor_kernels_batched_equal_per_pair(cuda, b, nop):
+    """Every variant of both solvers at 28x64 over b distinct pairs."""
+    s = _sor_batch(28, 64, b, cuda)
+    names, fn = (SCALAR, kernels.sor_scalar) if nop == 1 else (COUPLED, kernels.sor_coupled)
+    for v in kernels.sor_variants(28, 64, nop):
+        _assert_batched_equals_per_pair(
+            lambda *a: fn(*a, 3, 1.6, variant=v), [s[k] for k in names],
+            lambda i: [s[k][i] for k in names], b)
+
+
+_MAX_CTAS_PER_SM = 32  # resident CTAs an SM of compute capability 9.0 holds at most
+
+
+@pytest.mark.parametrize("kernel", ["refine_inner", "sor_scalar", "sor_coupled"])
+def test_grid_variant_rounds_over_more_pairs_than_resident(cuda, kernel):
+    """More pairs than the grid variant keeps resident: its CTAs take the
+    pairs in rounds, and every pair still equals its own launch."""
+    h, w = 6, 10
+    # above what any launch keeps resident: every SM's most CTAs, and 3 more
+    b = torch.cuda.get_device_properties(cuda).multi_processor_count * _MAX_CTAS_PER_SM + 3
+    if kernel == "refine_inner":
+        batched, pairs = _refine_batch(h, w, 1, b, cuda)
+        _assert_batched_equals_per_pair(
+            lambda *a: kernels.refine_inner(*a, variant="grid"), batched, lambda i: pairs[i], b)
+        return
+    nop = 1 if kernel == "sor_scalar" else 2
+    s = _sor_batch(h, w, b, cuda)
+    names = SCALAR if nop == 1 else COUPLED
+    fn = getattr(kernels, kernel)
+    _assert_batched_equals_per_pair(
+        lambda *a: fn(*a, 3, 1.6, variant="grid"), [s[k] for k in names],
+        lambda i: [s[k][i] for k in names], b)

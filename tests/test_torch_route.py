@@ -95,3 +95,35 @@ def test_sor_variant_total_deterministic_monotone(nop):
         assert sor_variant(h, w, nop) == ("block", 1)
     assert sor_variant(56, 128, nop)[0] == "cluster"
     assert sor_variant(448, 1024, nop) == ("grid", 0)
+
+
+@pytest.mark.parametrize("b", [2, 8, 16, 32, 64])
+def test_variant_pickers_take_the_batch(b):
+    """With b pairs a launch, both pickers still give a variant that can
+    take the level and never a narrower barrier for a larger level; from
+    16 pairs on, refine_inner's clusters of more than 8 CTAs give way to the
+    grid (the SOR solvers' clusters from 8 pairs: PERF.md).  Pure
+    arithmetic."""
+    rank = {"block": 0, "cluster": 1, "grid": 2}
+    sizes = [(h, w) for h in (1, 2, 7, 14, 28, 56, 57, 64, 65, 112, 224, 448)
+             for w in (1, 3, 32, 64, 128, 256, 1024)]
+    for nop in (0, 1, 2):  # 0: refine_inner (by pixels), 1 / 2: the SOR solvers (by pairs)
+        def pick(h, w):
+            return refine_variant(h, w, 1, b) if nop == 0 else sor_variant(h, w, nop, b)
+
+        def size(s):
+            return s[0] * s[1] if nop == 0 else -(-s[0] // 2) * s[1]
+
+        last = (-1, 0)
+        for h, w in sorted(sizes, key=lambda s: (size(s), s)):
+            v, n = pick(h, w)
+            assert v in (refine_variants(h, w) if nop == 0 else sor_variants(h, w, nop))
+            assert (rank[v], n if v == "cluster" else 0) >= last, (nop, h, w, v, n, last)
+            last = (rank[v], n if v == "cluster" else 0)
+    assert sor_variant(56, 128, 1, b)[0] == ("cluster" if b < 8 else "grid" if b < 16
+                                             else "block")
+    assert refine_variant(28, 64, 1, b) == ("cluster", 7)
+    assert refine_variant(56, 128, 1, b) == (("cluster", 16) if b < 16 else ("grid", 0))
+    if b >= 16:
+        assert sor_variant(56, 128, 2, b) == ("grid", 0)
+    assert refine_variant(14, 32, 1, b) == sor_variant(14, 32, 1, b) == ("block", 1)

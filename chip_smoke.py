@@ -5,27 +5,32 @@
 
 Builds the port's CUDA kernels from the checkout's sources, holds each
 kernel against its plain PyTorch version on the card at the shapes the main
-paths give it, and drives seven paths at 1024x436 on tests/goldens/fullres
+paths give it, and drives nine paths at 1024x436 on tests/goldens/fullres
 through the entry points (dis_flow: operating point 2 gray, op1 gray, op2
-RGB, op3 gray, op4 gray; dis_stereo: op2 gray and RGB), each with the
+RGB, op3 gray, op4 gray, op2 gray with the forward-backward merge;
+dis_stereo: op2 gray and RGB, op2 gray with the merge), each with the
 launch counters reset just before its run and read just after.  Both
 search kernels (level_search, gn_search) must equal their plain versions
-exactly on every call; refine_inner and sor_scalar run every call through
-each launch variant (block, cluster, grid), and sor_coupled (on no path)
-seeded fields at op2's level shapes and up to 448x1024; the variants must
-give the same bits as one another and as their plain versions, and each
-prints its variants' times, the one refine_variant / sor_variant picks and
-a fit of each variant's cost per phase.  A batched phase then drives op2
-gray (B = 32), stereo gray (B = 8) and op4 gray (B = 4) on distinct pairs
-through batched_flow: each pair must equal its own run, each kernel call of
-a batch its plain version on the same batched tensors, and every kernel in
-every variant at B = 1, 2, 7, 32 its per-pair launches; it prints op2 gray
-pairs/s at B = 1, 8, 32.
+exactly on every call (the fb stereo path's backward searches run
+level_search at camlr 1, the sign clamp >= 0); refine_inner and sor_scalar
+run every call through each launch variant (block, cluster, grid), and
+sor_coupled (on no path) seeded fields at op2's level shapes and up to
+448x1024; the variants must give the same bits as one another and as their
+plain versions, and each prints its variants' times, the one
+refine_variant / sor_variant picks and a fit of each variant's cost per
+phase.  The merge's scatter runs twice on the card on op2 gray fb's finest
+level (the same bits required) and once on the CPU.  A batched phase then
+drives op2 gray (B = 32), stereo gray (B = 8), op4 gray (B = 4) and op2
+gray fb (B = 4) on distinct pairs through batched_flow: each pair must
+equal its own run, each kernel call of a batch its plain version on the
+same batched tensors, and every kernel in every variant at B = 1, 2, 7, 32
+its per-pair launches; it prints op2 gray pairs/s at B = 1, 8, 32.
 It checks the outputs against the reference binaries' goldens, the port's CPU path and
-a second run, times pairs, profiles the device, runs the CLI (flow and
-stereo), and prints one JSON line per phase.  The line before the last
-lists every kernel with its times and bound; the last line is
-{"ok": true, "device": {...}}.  Any failure raises and the script exits
+a second run (bit-identical), times pairs, profiles the device, runs the
+CLI (flow and stereo; the fb paths at -v 2, whose per-scale table must
+print, and with --viz), and prints one JSON line per phase.  The line
+before the last lists every kernel with its times and bound; the last line
+is {"ok": true, "device": {...}}.  Any failure raises and the script exits
 non-zero without that line; so does a host without CUDA.
 
 Times: CUDA events around one launch, queued behind a device-side sleep so
@@ -71,13 +76,20 @@ PATHS = {
     "stereo gray": (DE, 1, "stereo", 2, "de_int_op2", dict(level_search=3, sor_scalar=15)),
     "stereo rgb": (DE, 3, "stereo", 2, None, dict(level_search=2, gn_search=1,
                                                   sor_scalar=15)),
+    # The forward-backward merge (FB): a backward search per level, and above
+    # the finest level a backward refinement (stereo: n_inner = level + 1 SOR
+    # launches at levels 5 and 4, with the flipped sign clamp).
+    "op2 gray fb": (OF, 1, "flow", 2, "of_int_fbcon", dict(level_search=6, refine_inner=5)),
+    "stereo gray fb": (DE, 1, "stereo", 2, None, dict(level_search=6, sor_scalar=26)),
 }
+FB = ("op2 gray fb", "stereo gray fb")
 # Card-vs-CPU checks (op2 gray as before; op4 only within CPU_LIMIT_S) and
 # pairs timed per path.
-CPU_CHECKED = ("op2 gray", "op3 gray", "op4 gray", "stereo gray", "stereo rgb")
+CPU_CHECKED = ("op2 gray", "op3 gray", "op4 gray", "stereo gray", "stereo rgb", *FB)
 PAIRS_TIMED = {"op2 gray": 10, "op3 gray": 10, "op4 gray": 5, "stereo gray": 10,
-               "stereo rgb": 10}
-PROFILED = {"op2 gray": 5, "op3 gray": 3, "op4 gray": 3, "stereo gray": 5, "stereo rgb": 3}
+               "stereo rgb": 10, "op2 gray fb": 10, "stereo gray fb": 10}
+PROFILED = {"op2 gray": 5, "op3 gray": 3, "op4 gray": 3, "stereo gray": 5, "stereo rgb": 3,
+            "op2 gray fb": 5, "stereo gray fb": 5}
 
 
 T_START = time.perf_counter()
@@ -108,7 +120,32 @@ def path_inputs(name: str):
 
     files, ch, mode, op, _, _ = PATHS[name]
     imgs = [io.load_image(FULLRES / f, ch) for f in files]
-    return imgs[0], imgs[1], operating_point(op, imgs[0].shape[1], mode=mode, channels=ch)
+    return imgs[0], imgs[1], operating_point(op, imgs[0].shape[1], mode=mode, channels=ch,
+                                             use_fb_merge=name in FB)
+
+
+def cli_params(cfg) -> list:
+    """A configuration as the CLI's 20 explicit parameters (run_dense.cpp:269-294)."""
+    return [str(x) for x in (
+        cfg.sc_f, cfg.sc_l, cfg.max_iter, cfg.min_iter, cfg.dp_thresh, cfg.dr_thresh,
+        cfg.res_thresh, cfg.patch_size, cfg.overlap, int(cfg.use_fb_merge),
+        int(cfg.patch_norm), cfg.cost, int(cfg.use_tv_refine), cfg.tv_alpha, cfg.tv_gamma,
+        cfg.tv_delta, cfg.tv_innerit, cfg.tv_solverit, cfg.tv_sor, cfg.verbosity)]
+
+
+def call_levels(cfg, calls_per_level, search: bool = False) -> list:
+    """The pyramid level of each call a pair makes of a kernel that runs
+    calls_per_level(sl) times per direction and level, in call order.  With
+    fb-merge the backward calls follow the forward ones of their level,
+    labelled "<sl> bw": at every level for a search, above the finest for a
+    refinement (models/dis.py::_stage_optimize, _stage_refine)."""
+    out = []
+    for sl in range(cfg.sc_f, cfg.sc_l - 1, -1):
+        n = calls_per_level(sl)
+        out += [str(sl)] * n
+        if cfg.use_fb_merge and (search or sl > cfg.sc_l):
+            out += [f"{sl} bw"] * n
+    return out
 
 
 def run_path(name: str, img1, img2, cfg, device) -> np.ndarray:
@@ -247,7 +284,7 @@ def one_pair_args(kernel: str, a: tuple) -> tuple:
 # ---- the batched phase ----
 # Each batched path: B distinct pairs, pair i the path's pair rolled
 # horizontally by ROLL_PX * i px, so a wrong pair offset cannot hide.
-BATCHED = {"op2 gray": 32, "stereo gray": 8, "op4 gray": 4}
+BATCHED = {"op2 gray": 32, "stereo gray": 8, "op4 gray": 4, "op2 gray fb": 4}
 ROLL_PX = 4
 CHECK_B = (1, 2, 7, 32)      # batched launches held against per-pair launches
 VARIANT_B = (1, 2, 8, 16, 32)  # launch variants timed at these batch sizes
@@ -595,9 +632,9 @@ def main() -> int:
                 f"{name} pair made kernel calls {made}, expected {expected_launches(name)}")
 
     def level_of(name, i, kernel):
-        """Pyramid level of a path's i-th call of a search kernel."""
-        cfg = inputs[name][2]
-        lv = list(range(cfg.sc_f, cfg.sc_l - 1, -1))
+        """Pyramid level of a path's i-th call of a search kernel (the
+        coarser levels take level_search, the finer gn_search)."""
+        lv = call_levels(inputs[name][2], lambda sl: 1, search=True)
         n_level = PATHS[name][5].get("level_search", 0)
         return lv[i] if kernel == "level_search" else lv[n_level + i]
 
@@ -626,23 +663,27 @@ def main() -> int:
     # (case, args, kwargs): every call of every path, and the other costs at
     # op2 gray's finest level.  ms, plain_ms and bound_ms of the kernels line
     # sum op2 gray's three calls.
-    cases = [(f"{name} level {level_of(name, i, 'level_search')}", a, k)
+    cases = [(name, f"{name} level {level_of(name, i, 'level_search')}", a, k)
              for name in PATHS for i, (a, k) in enumerate(calls[name]["level_search"])]
     a3, k3 = calls["op2 gray"]["level_search"][2]
     for cost in (1, 2, 10):
         cfg_c = dataclasses.replace(a3[6], cost=cost)
-        cases.append((f"op2 gray level 3 cost {cost}", a3[:6] + (cfg_c,) + a3[7:], k3))
-    for name, a, k in cases:
+        cases.append((None, f"op2 gray level 3 cost {cost}", a3[:6] + (cfg_c,) + a3[7:], k3))
+    camlr1_checked = 0  # stereo searches with the sign clamp >= 0 (fb's backward grid)
+    for path, name, a, k in cases:
         res = kernels.level_search(*a, **k)
         ref = level_search_reference(*a, **k)
         torch.cuda.synchronize()
         line = search_check(name, res, ref, a[6])
         line["level_hw"] = list(a[0].shape[:2])
-        if "cost" not in name:
+        if a[6].mode == "stereo":
+            line["camlr"] = a[6].camlr if k.get("camlr") is None else k["camlr"]
+            camlr1_checked += line["camlr"] == 1 and line["ok"]
+        if path is not None:
             ms = gpu_ms(torch, lambda: kernels.level_search(*a, **k), 50)
             b, by = bound_ms(*level_search_work(a, a[6], res.iters))
             line.update(ms=ms, bound_ms=b, bound_by=by)
-            if name.startswith("op2 gray"):  # the plain version is timed where the row sums
+            if path == "op2 gray":  # the plain version is timed where the row sums
                 pms = gpu_ms(torch, lambda: level_search_reference(*a, **k), 5)
                 ls_level_ms[name.split(" level ")[1]] = ms
                 ls_ms += ms
@@ -653,6 +694,8 @@ def main() -> int:
         emit("kernel level_search", **line)
         require(line["ok"], f"level_search disagrees with its plain version: {line}")
         ls_err = max(ls_err, line["max_abs_err_p"], line["max_abs_err_pt"])
+    require(camlr1_checked == 3, f"{camlr1_checked} level_search calls checked at camlr 1, "
+                                 "expected stereo gray fb's 3 backward levels")
     # What a GN trip costs: op2 gray's levels at max_iter = min_iter = 4, 8
     # and 12 (every patch runs max_iter + 1 trips), fit to a fixed cost per
     # launch plus a cost per trip.
@@ -671,7 +714,7 @@ def main() -> int:
     rows["level_search"] = dict(
         source="level_search.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:1124",
         per="op2 gray", max_abs_err=ls_err, ms=ls_ms, plain_ms=ls_plain, bound_ms=ls_bound,
-        bound_by=ls_bound_by, level_ms=ls_level_ms)
+        bound_by=ls_bound_by, level_ms=ls_level_ms, camlr1_calls_checked=camlr1_checked)
 
     # ---- kernel gn_search: every call of every path, exact; times at op3 and op4 ----
     gn_err = 0.0
@@ -720,7 +763,7 @@ def main() -> int:
     )
     a_big = tuple(big) + (big_derivs,) + calls["op2 gray"]["refine_inner"][2][0][4:]
     a_big = a_big[:4] + (1,) + a_big[5:]  # n_inner of op4's finest level (level 0)
-    rcases = [(f"{name} level {inputs[name][2].sc_f - i}", a)
+    rcases = [(f"{name} level {call_levels(inputs[name][2], lambda sl: 1)[i]}", a)
               for name in PATHS for i, (a, _) in enumerate(calls[name]["refine_inner"])]
     rcases.append(("random 448x1024", a_big))
     ri_level_ms = {}
@@ -847,17 +890,17 @@ def main() -> int:
     threshold_shapes = ((40, 96), (48, 112), (80, 160), (96, 192), (112, 256), (224, 512),
                         (448, 1024))
 
-    # sor_scalar: every call of both stereo paths (15 per pair: levels 5, 4, 3
-    # with n_inner 6, 5, 4) and 448x1024, through every variant; ms,
+    # sor_scalar: every call of the stereo paths (15 per pair: levels 5, 4, 3
+    # with n_inner 6, 5, 4; with fb 11 more, the backward flow's at levels 5
+    # and 4) and 448x1024, through every variant; ms,
     # plain_ms and bound_ms of the kernels line sum stereo gray's calls.
     ss = dict(source="sor_rb.cu", replaces="of_dis_tpu/ops/pallas_kernels.py:1350",
               per="stereo gray", max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
               bound_by=None, level_ms={}, variant_ms={})
     fit_cases = {}  # one call per level shape of stereo gray, for the phase costs
-    for name in ("stereo gray", "stereo rgb"):
+    for name in ("stereo gray", "stereo rgb", "stereo gray fb"):
         cfg = inputs[name][2]
-        levels = [sl for sl in range(cfg.sc_f, cfg.sc_l - 1, -1)
-                  for _ in range(cfg.tv_innerit * (sl + 1))]
+        levels = call_levels(cfg, lambda sl: cfg.tv_innerit * (sl + 1))
         for sl, (a, _) in zip(levels, calls[name]["sor_scalar"]):
             line = sor_case(1, f"{name} level {sl}", a, name == "stereo gray")
             ss["max_abs_err"] = max(ss["max_abs_err"], line["max_abs_err"])
@@ -866,7 +909,7 @@ def main() -> int:
                 for key in ("ms", "plain_ms", "bound_ms"):
                     ss[key] += line[key]
                 ss["bound_by"] = line["bound_by"]
-                ss["level_ms"][str(sl)] = ss["level_ms"].get(str(sl), 0.0) + line["ms"]
+                ss["level_ms"][sl] = ss["level_ms"].get(sl, 0.0) + line["ms"]
                 for v, t in line["variant_ms"].items():
                     ss["variant_ms"][v] = ss["variant_ms"].get(v, 0.0) + t
     for h, w in threshold_shapes:
@@ -979,6 +1022,37 @@ def main() -> int:
             require(line["epe_card_vs_cpu"] < EPE_CPU,
                     f"{name}: card vs CPU mean EPE {line['epe_card_vs_cpu']}")
 
+    # ---- fb-merge: the scatter's order, at op2 gray fb's finest level ----
+    # That level's two searches (forward, backward) from the recorded calls;
+    # the merge twice on the card (the same bits required), once on the CPU
+    # (reported), and the densify stage's device time with and without it.
+    from of_dis_tpu_torch.models.densify import aggregate_flow_dense
+    from of_dis_tpu_torch.models.grid import level_geometry
+
+    (a_fw, k_fw), (a_bw, k_bw) = calls["op2 gray fb"]["level_search"][-2:]
+    res_fw, res_bw = kernels.level_search(*a_fw, **k_fw), kernels.level_search(*a_bw, **k_bw)
+    cfg_fb = a_fw[6]
+    geo = level_geometry(a_fw[7], a_fw[8], cfg_fb)
+
+    def merge(fw, bw):
+        return aggregate_flow_dense(fw, geo, cfg_fb, bw_result=bw)
+
+    def on_cpu(res):
+        return type(res)(*(None if t is None else t.cpu() for t in res))
+
+    m1, m2 = merge(res_fw, res_bw), merge(res_fw, res_bw)
+    m_cpu = merge(on_cpu(res_fw), on_cpu(res_bw))
+    torch.cuda.synchronize()
+    line = dict(config=f"op2 gray fb {w0}x{h0} level {cfg_fb.sc_l}", hw=[geo.h, geo.w],
+                patches=geo.n_patches, cells=geo.n_patches * cfg_fb.patch_size ** 2 * 4,
+                bit_identical=bool(torch.equal(m1, m2)),
+                equal_to_cpu=bool(torch.equal(m1.cpu(), m_cpu)),
+                max_abs_err_vs_cpu=float((m1.cpu() - m_cpu).abs().max()),
+                densify_ms=gpu_ms(torch, lambda: aggregate_flow_dense(res_fw, geo, cfg_fb), 20),
+                densify_with_merge_ms=gpu_ms(torch, lambda: merge(res_fw, res_bw), 20))
+    emit("fb merge", **line)
+    require(line["bit_identical"], f"two merges on the card differ: {line}")
+
     # ---- batched: B distinct pairs per call, each equal to its own run ----
     throughput = batched_phase(torch, dev, inputs, rows, smi, golden, sor_system)
 
@@ -1032,6 +1106,44 @@ def main() -> int:
         emit("cli", output=out_name, returncode=proc.returncode,
              stdout=proc.stdout.strip().splitlines()[-1:], equal_to_library=cli_equal)
         require(cli_equal, f"cli {out_name} differs from the library's output")
+
+    # The fb paths through the CLI's 20 explicit parameters: op2 gray fb at
+    # -v 2 (utils/instrument.py's per-scale table), stereo gray fb at -v 0
+    # with --viz; each file must equal the library's output bit for bit.
+    for name, files, out_name, extra in (
+            ("op2 gray fb", OF, "of_int_fbcon.flo", ["-v", "2"]),
+            ("stereo gray fb", DE, "de_int_fbcon.pfm", ["-v", "0", "--viz",
+                                                        str(OUT_DIR / "de_int_fbcon.pgm")])):
+        cfg = inputs[name][2]
+        out = OUT_DIR / out_name
+        proc = subprocess.run(
+            [sys.executable, "-m", "of_dis_tpu_torch.cli", str(FULLRES / files[0]),
+             str(FULLRES / files[1]), str(out), "--params", *cli_params(cfg), *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+        require(proc.returncode == 0, f"cli failed: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        if out_name.endswith(".flo"):
+            cli_equal = bool(np.array_equal(io.read_flo(out), flows[name]))
+        else:
+            lib = OUT_DIR / "library.pfm"
+            io.write_pfm(lib, flows[name][..., 0])
+            cli_equal = out.read_bytes() == lib.read_bytes()
+        lines = proc.stdout.strip().splitlines()
+        line = dict(output=out_name, args=extra, returncode=proc.returncode,
+                    equal_to_library=cli_equal)
+        if "2" in extra:
+            table = [ln for ln in lines if ln.startswith("TIME (Sc:")]
+            line.update(stdout=lines, scale_rows=len(table),
+                        table_ok=len(table) == cfg.n_scales
+                        and any(ln.startswith("TIME (Pyramide+Gradients)") for ln in lines)
+                        and any(ln.startswith("TIME (O.Flow Run-Time   )") for ln in lines))
+        else:
+            img = io._read_pnm_numpy(OUT_DIR / "de_int_fbcon.pgm")
+            line.update(viz_shape=list(img.shape), viz_std=float(img.std()),
+                        table_ok=tuple(img.shape[:2]) == (h0, w0) and float(img.std()) > 0)
+        emit("cli", **line)
+        require(cli_equal, f"cli {out_name} differs from the library's output")
+        require(line["table_ok"], f"cli {out_name}: {line}")
 
     # ---- kernels ----
     kernel_rows = [

@@ -18,12 +18,16 @@ Public API:
         start and checkpoint / resume
     DISConfig, operating_point, auto_first_scale
     io.read_flo / write_flo / read_pfm / write_pfm / load_image
+    viz.flow_to_color / disparity_to_gray / save_image
+    utils.instrument.dis_flow_timed: dis_raw with the per-scale -v 2 table
+    utils.eval: EPE and error statistics
 """
 
 from .config import DISConfig, auto_first_scale, operating_point
 from .models.dis import dis_flow, dis_raw, dis_stereo
 from .parallel.batch import batched_flow
 from . import io
+from .utils import viz
 
 __version__ = "0.1.0"
 
@@ -36,4 +40,5 @@ __all__ = [
     "dis_raw",
     "dis_stereo",
     "io",
+    "viz",
 ]

@@ -12,8 +12,11 @@ The mode follows the output's extension (.flo flow, .pfm stereo) unless
 --mode names it; a .pfm holds the disparity negated, as the reference
 writes it.  --rgb selects 3-channel input; --gradmag uses the
 gradient-magnitude input image (reference SELECTCHANNEL==2).  Runs on CUDA
-unless --device says otherwise.  -v 1 and -v 2 print the stage timer (the
-per-scale -v 2 table is not ported yet).
+unless --device says otherwise.  -v 1 prints the total run time; -v 2 (the
+default) runs utils/instrument.py::dis_flow_timed and prints the
+reference's per-scale stage table (oflow.cpp:296-304), with the same output
+as -v 0.  --viz IMG also writes an image of the result (Middlebury colour
+wheel for flow, a grey ramp of |disparity| for stereo).
 """
 
 from __future__ import annotations
@@ -77,6 +80,10 @@ def main(argv=None) -> int:
                     help="stereo camera: 0 left (disparity <= 0), 1 right")
     ap.add_argument("--init-flow", default=None,
                     help=".flo warm start at the coarsest scale (oflow.cpp:217-220)")
+    ap.add_argument("--viz", default=None, metavar="IMG",
+                    help="also write a visualization image (Middlebury color "
+                         "wheel for flow, grayscale ramp for disparity), the "
+                         "reference's DISVISUAL display (oflow.cpp:307-335)")
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda)")
     ap.add_argument("-v", "--verbosity", type=int, default=2)
@@ -119,16 +126,35 @@ def main(argv=None) -> int:
             padded * fct, int(padded.shape[0] * fct), int(padded.shape[1] * fct)
         )
 
-    with timer.stage("O.Flow Run-Time", sync=device):
-        out = dis_raw(img1, img2, cfg, init_flow=init_flow, gradmag_input=args.gradmag,
-                      device=device).cpu().numpy()
+    if args.verbosity > 1:
+        # Per-scale stage table (oflow.cpp:296-304): the same stage functions
+        # as dis_raw, each waited for on the device.
+        from .utils.instrument import dis_flow_timed
+
+        out, _ = dis_flow_timed(img1, img2, cfg, verbosity=args.verbosity,
+                                gradmag_input=args.gradmag, init_flow=init_flow,
+                                device=device)
+        out = out.cpu().numpy()
+    else:
+        with timer.stage("O.Flow Run-Time", sync=device):
+            out = dis_raw(img1, img2, cfg, init_flow=init_flow, gradmag_input=args.gradmag,
+                          device=device).cpu().numpy()
 
     with timer.stage("Saving flow file"):
         if mode == "flow":
             io.write_flo(args.out, out)
         else:
             io.write_pfm(args.out, out[..., 0])
-    timer.report()
+    if args.viz:
+        from .utils import viz
+
+        if mode == "flow":
+            viz.save_image(args.viz, viz.flow_to_color(out))
+        else:
+            viz.save_image(args.viz, viz.disparity_to_gray(out))
+    if args.verbosity <= 1:
+        # at verbosity 2 the instrumented run already printed the total
+        timer.report()
     return 0
 
 

@@ -8,7 +8,11 @@ oflow.cpp:32-363, and the driver glue of run_dense.cpp:296-414):
 
 Eager: the scale loop is a Python loop.  Per scale sl = sc_f .. sc_l
 (oflow.cpp:184-337): templates -> init from coarser flow (2x NN lookup) ->
-level search -> deterministic densification -> variational refinement.
+level search -> deterministic densification (+ the forward-backward merge)
+-> variational refinement.  With fb-merge (cfg.use_fb_merge) a backward
+search runs on the swapped images with the flipped camera, its flow is
+merged into the forward one, and above the finest scale it is densified,
+refined and carried to the next level too (oflow.cpp:154-157, 269-294).
 The search runs in one of two CUDA kernels, as ops/kernels.py::search_route
 decides for the level's shape: csrc/level_search.cu extracts the templates
 itself, csrc/gn_search.cu takes them from `build_templates`.  Refinement
@@ -19,8 +23,7 @@ divisibility padding (run_dense.cpp:406-414).
 Every stage runs on a batch of pairs (B, Hp, Wp, C), each kernel launch
 taking all B; `dis_raw` runs one pair as a batch of one, and
 parallel/batch.py::batched_flow runs B.  Entry points run on CUDA unless
-the caller passes device="cpu"; without a GPU they raise.  The
-forward-backward merge is not ported yet and raises NotImplementedError.
+the caller passes device="cpu"; without a GPU they raise.
 """
 
 from __future__ import annotations
@@ -61,18 +64,25 @@ def _grid_tensors(w: int, h: int, cfg: DISConfig, device: torch.device):
     return geo, pt_ref, coarse_idx
 
 
-def _stage_templates(im_a, dx_a, dy_a, pt_ref, cfg: DISConfig, pad: int) -> PatchTemplates:
-    """Stage 'pconst': template extraction + Hessians (patchgrid.cpp:109-114).
-    On levels that kernels.search_route sends to the whole-level search they
-    happen inside that kernel, and this stage forwards the level images
-    (hes None); elsewhere they are built here for gn_search."""
+def _stage_templates(im_a, dx_a, dy_a, im_b, dx_b, dy_b, pt_ref, cfg: DISConfig, pad: int):
+    """Stage 'pconst': template extraction + Hessians (patchgrid.cpp:109-114)
+    of the forward grid, and of the backward grid with fb-merge (else None).
+    kernels.search_route decides once per level shape, for both directions:
+    on levels it sends to the whole-level search the templates are made
+    inside that kernel, and this stage forwards the level images (hes
+    None); elsewhere they are built here for gn_search."""
     hp, wp, c = im_a.shape[-3:]
     psz = cfg.patch_size
     route = kernels.search_route(hp, wp, c, pt_ref.shape[0], psz,
                                  min(2 * psz + 2, hp), min(2 * psz + 2, wp))
-    if route == "level":
-        return PatchTemplates(tmp=im_a, dx=dx_a, dy=dy_a, hes=None)
-    return build_templates(im_a, dx_a, dy_a, pt_ref, cfg, pad)
+
+    def templates(im, dx, dy):
+        if route == "level":
+            return PatchTemplates(tmp=im, dx=dx, dy=dy, hes=None)
+        return build_templates(im, dx, dy, pt_ref, cfg, pad)
+
+    tmpl_bw = templates(im_b, dx_b, dy_b) if cfg.use_fb_merge else None
+    return templates(im_a, dx_a, dy_a), tmpl_bw
 
 
 def _stage_init(flow_prev: Optional[torch.Tensor], coarse_idx, b: int, n: int,
@@ -88,61 +98,100 @@ def _stage_init(flow_prev: Optional[torch.Tensor], coarse_idx, b: int, n: int,
     return init.expand(b, n, cfg.nop).contiguous()
 
 
-def _stage_optimize(tmpl: PatchTemplates, im_b, pt_ref, p_init, cfg: DISConfig,
-                    w: int, h: int, pad: int):
-    """Stage 'poptim': the level search, in the kernel the templates stage chose."""
+def _search(tmpl: PatchTemplates, im_b, pt_ref, p_init, cfg: DISConfig, w: int, h: int,
+            pad: int, camlr: Optional[int] = None):
+    """One direction's level search, in the kernel the templates stage
+    chose; camlr overrides cfg.camlr (the stereo sign clamp)."""
     if tmpl.hes is None:
         return kernels.level_search(tmpl.tmp, tmpl.dx, tmpl.dy, im_b, pt_ref, p_init,
-                                    cfg, w, h, pad)
-    return kernels.gn_search(im_b, tmpl, pt_ref, p_init, cfg, w, h, pad)
+                                    cfg, w, h, pad, camlr=camlr)
+    return kernels.gn_search(im_b, tmpl, pt_ref, p_init, cfg, w, h, pad, camlr=camlr)
 
 
-def _stage_densify(res, geo, cfg: DISConfig):
-    """Stage 'cflow': weighted aggregation."""
-    return aggregate_flow_dense(res, geo, cfg)
+def _stage_optimize(im_a, im_b, tmpl_fw, tmpl_bw, pt_ref, p_init, p_init_bw,
+                    cfg: DISConfig, w: int, h: int, pad: int):
+    """Stage 'poptim': the level search, forward (+ backward for fb-merge,
+    the images swapped and the camera flipped, oflow.cpp:154-157)."""
+    res_fw = _search(tmpl_fw, im_b, pt_ref, p_init, cfg, w, h, pad)
+    res_bw = None
+    if cfg.use_fb_merge:
+        res_bw = _search(tmpl_bw, im_a, pt_ref, p_init_bw, cfg, w, h, pad,
+                         camlr=1 - cfg.camlr)
+    return res_fw, res_bw
 
 
-def _stage_refine(flow, im_a_raw, im_b_raw, sl: int, cfg: DISConfig, camlr: int):
-    """Stage 'tvopt': variational refinement."""
+def _stage_densify(res_fw, res_bw, sl: int, geo, cfg: DISConfig):
+    """Stage 'cflow': weighted aggregation (+ fb merge); the backward flow is
+    only needed above the finest scale (oflow.cpp:269-270)."""
+    flow_fw = aggregate_flow_dense(res_fw, geo, cfg, bw_result=res_bw)
+    flow_bw = None
+    if cfg.use_fb_merge and sl > cfg.sc_l:
+        flow_bw = aggregate_flow_dense(res_bw, geo, cfg, bw_result=res_fw)
+    return flow_fw, flow_bw
+
+
+def _stage_refine(flow_fw, flow_bw, im_a_raw, im_b_raw, sl: int, cfg: DISConfig):
+    """Stage 'tvopt': variational refinement of the forward flow (and of
+    the backward flow when it is carried, on the swapped images with the
+    flipped camera, oflow.cpp:291-294)."""
     if not cfg.use_tv_refine:
-        return flow
-    return refine_level(flow, im_a_raw, im_b_raw, sl, cfg, camlr=camlr)
+        return flow_fw, flow_bw
+    flow_fw = refine_level(flow_fw, im_a_raw, im_b_raw, sl, cfg, camlr=cfg.camlr)
+    if flow_bw is not None:
+        flow_bw = refine_level(flow_bw, im_b_raw, im_a_raw, sl, cfg, camlr=1 - cfg.camlr)
+    return flow_fw, flow_bw
 
 
-def _level_flow(im_a, dx_a, dy_a, im_b, flow_prev, sl: int, w: int, h: int,
-                cfg: DISConfig, im_a_raw, im_b_raw):
-    """One pyramid level of a batch: the flow at this scale, (B, h, w, nop)."""
+def _level_flow(im_a, dx_a, dy_a, im_b, dx_b, dy_b, flow_prev, flow_bw_prev, sl: int,
+                w: int, h: int, cfg: DISConfig, im_a_raw, im_b_raw):
+    """One pyramid level of a batch: (flow_fw, flow_bw or None), each
+    (B, h, w, nop).  Composed of the _stage_* functions above, which
+    utils/instrument.py times one by one for the -v 2 table."""
     pad = cfg.patch_size
     geo, pt_ref, coarse_idx = _grid_tensors(w, h, cfg, im_a.device)
-    tmpl = _stage_templates(im_a, dx_a, dy_a, pt_ref, cfg, pad)
-    p_init = _stage_init(flow_prev, coarse_idx, im_a.shape[0], geo.n_patches, cfg,
-                         im_a.device)
-    res = _stage_optimize(tmpl, im_b, pt_ref, p_init, cfg, w, h, pad)
-    flow = _stage_densify(res, geo, cfg)
-    return _stage_refine(flow, im_a_raw, im_b_raw, sl, cfg, cfg.camlr)
+    b, n = im_a.shape[0], geo.n_patches
+    tmpl_fw, tmpl_bw = _stage_templates(im_a, dx_a, dy_a, im_b, dx_b, dy_b, pt_ref, cfg, pad)
+    p_init = _stage_init(flow_prev, coarse_idx, b, n, cfg, im_a.device)
+    p_init_bw = (_stage_init(flow_bw_prev, coarse_idx, b, n, cfg, im_a.device)
+                 if cfg.use_fb_merge else None)
+    res_fw, res_bw = _stage_optimize(im_a, im_b, tmpl_fw, tmpl_bw, pt_ref, p_init, p_init_bw,
+                                     cfg, w, h, pad)
+    flow_fw, flow_bw = _stage_densify(res_fw, res_bw, sl, geo, cfg)
+    return _stage_refine(flow_fw, flow_bw, im_a_raw, im_b_raw, sl, cfg)
+
+
+def _pyramids(img1, img2, cfg: DISConfig, gradmag_input: bool):
+    """Both pyramids of a batch (B, H, W, C), levels sc_l .. sc_f: (im1s,
+    dx1s, dy1s, im2s, dx2s, dy2s).  img2's gradients are kept only for
+    fb-merge, whose backward search alone reads them."""
+    n_lv, pad = cfg.sc_f + 1, cfg.patch_size
+    im1s, dx1s, dy1s = pyr.build_pyramid(img1, n_lv, pad, gradmag_input, first_level=cfg.sc_l)
+    im2s, dx2s, dy2s = pyr.build_pyramid(img2, n_lv, pad, gradmag_input, first_level=cfg.sc_l)
+    if not cfg.use_fb_merge:
+        dx2s = dy2s = [None] * n_lv
+    return im1s, dx1s, dy1s, im2s, dx2s, dy2s
 
 
 def _dis_padded(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False):
     """Run DIS on a batch of pairs (B, H, W, C), already padded to
     divisibility by 2^sc_f.  init_flow, at scale sc_f+1, is (B, h, w, nop)
-    or (h, w, nop) shared by the batch.
+    or (h, w, nop) shared by the batch; it seeds the forward flow only.
 
     Returns flow at scale sc_l: (B, H/2^sc_l, W/2^sc_l, nop)."""
     h, w = img1.shape[1:3]
     if w % (1 << cfg.sc_f) or h % (1 << cfg.sc_f):
         raise ValueError(f"image dims {h}x{w} not divisible by 2^{cfg.sc_f}")
     pad = cfg.patch_size
-    n_lv = cfg.sc_f + 1
-    im1s, dx1s, dy1s = pyr.build_pyramid(img1, n_lv, pad, gradmag_input, first_level=cfg.sc_l)
-    im2s, _, _ = pyr.build_pyramid(img2, n_lv, pad, gradmag_input, first_level=cfg.sc_l)
+    im1s, dx1s, dy1s, im2s, dx2s, dy2s = _pyramids(img1, img2, cfg, gradmag_input)
 
     flow = init_flow  # sized for scale sc_f+1 when provided (oflow.cpp:217-220)
+    flow_bw = None
     for sl in range(cfg.sc_f, cfg.sc_l - 1, -1):
         lw, lh = w >> sl, h >> sl
         raw1 = im1s[sl][:, pad:-pad, pad:-pad]
         raw2 = im2s[sl][:, pad:-pad, pad:-pad]
-        flow = _level_flow(im1s[sl], dx1s[sl], dy1s[sl], im2s[sl], flow, sl, lw, lh,
-                           cfg, raw1, raw2)
+        flow, flow_bw = _level_flow(im1s[sl], dx1s[sl], dy1s[sl], im2s[sl], dx2s[sl], dy2s[sl],
+                                    flow, flow_bw, sl, lw, lh, cfg, raw1, raw2)
     return flow
 
 
@@ -156,8 +205,6 @@ def _prepare(img1, img2, cfg: DISConfig, device, lead: int):
     """Validated (..., H, W, C) float32 tensors of a pair (lead 0) or a batch
     (lead 1) on the resolved device, and that device."""
     cfg.validate()
-    if cfg.use_fb_merge:
-        raise NotImplementedError("the forward-backward merge is not ported yet")
     dev = resolve_device(device)
     img1 = _as_tensor(img1, dev)
     img2 = _as_tensor(img2, dev)

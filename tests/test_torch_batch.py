@@ -60,6 +60,10 @@ CASES = {
     "stereo gray": (_cfg(mode="stereo"), (3, 40, 48)),
     # level 0 (80x112) takes the GN route: templates, then gn_search
     "flow gray gn route": (_cfg(), (2, 80, 112)),
+    # the forward-backward merge: a backward search, densify and refinement
+    # per pair (stereo: the flipped sign clamp)
+    "flow gray fb": (_cfg(use_fb_merge=True), (2, 40, 48)),
+    "stereo gray fb": (_cfg(mode="stereo", use_fb_merge=True), (2, 40, 48)),
 }
 
 

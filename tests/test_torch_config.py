@@ -73,6 +73,8 @@ def test_port_imports_neither_jax_nor_jax_package():
         "import sys\n"
         "import of_dis_tpu_torch, of_dis_tpu_torch.cli, of_dis_tpu_torch.ops.kernels\n"
         "import of_dis_tpu_torch.ops.build, of_dis_tpu_torch.utils.timing\n"
+        "import of_dis_tpu_torch.utils.instrument, of_dis_tpu_torch.utils.eval\n"
+        "import of_dis_tpu_torch.parallel.video\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'of_dis_tpu' or m.startswith('of_dis_tpu.')]\n"
         "print(bad)\n"
@@ -98,11 +100,17 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_features_raise():
+@pytest.mark.parametrize("mode", ["flow", "stereo"])
+def test_fb_merge_runs_through_dis_raw(mode):
+    """use_fb_merge, refused before it was ported, runs in both modes: a
+    finite field of the input's size that the merge changes."""
+    from scipy.ndimage import gaussian_filter
+
     from of_dis_tpu_torch import dis_raw
 
-    img = np.zeros((32, 32), np.float32)
-    for mode in ("flow", "stereo"):
-        with pytest.raises(NotImplementedError):
-            dis_raw(img, img, tcfg.DISConfig(mode=mode, sc_f=1, sc_l=0, use_fb_merge=True),
-                    device="cpu")
+    base = gaussian_filter(np.random.RandomState(2).rand(40, 56) * 255, 2.0).astype(np.float32)
+    img1, img2 = base[4:36, 4:52], base[4:36, 7:55]
+    cfg = tcfg.DISConfig(mode=mode, sc_f=1, sc_l=0, max_iter=4, min_iter=4)
+    fb = dis_raw(img1, img2, dataclasses.replace(cfg, use_fb_merge=True), device="cpu")
+    assert fb.shape == (32, 48, cfg.nop) and bool(torch.isfinite(fb).all())
+    assert not torch.equal(fb, dis_raw(img1, img2, cfg, device="cpu"))

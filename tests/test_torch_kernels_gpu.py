@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes, including the variants later slices need (12-px patches,
-stereo).  Marked `gpu` and skipped without a CUDA device.  This file imports
+stereo, the backward search's camlr 1), and the forward-backward merge on
+the card (the small fbcon goldens, the merge's fixed order).  Marked `gpu` and skipped without a CUDA device.  This file imports
 no JAX and no conftest fixture, so on a machine with a GPU and no JAX it runs
 as
 
@@ -8,14 +9,19 @@ as
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from of_dis_tpu_torch import DISConfig, dis_flow, dis_stereo, operating_point
+from golden_util import GOLD, epe, load_manifest
+from of_dis_tpu_torch import DISConfig, dis_flow, dis_raw, dis_stereo, io, operating_point
+from of_dis_tpu_torch.cli import _cfg_from_params
+from of_dis_tpu_torch.models.densify import aggregate_flow_dense
 from of_dis_tpu_torch.models.grid import level_geometry
 from of_dis_tpu_torch.models.inverse_search import (
+    SearchResult,
     build_templates,
     gn_search_reference,
     level_search_reference,
@@ -61,13 +67,15 @@ def _level_args(cfg, c, device, sl=1):
             cfg, lw, lh, pad)
 
 
-@pytest.mark.parametrize("mode,c,psz,cost", [
-    ("flow", 1, 8, 0), ("flow", 3, 8, 0), ("flow", 1, 8, 1), ("flow", 1, 8, 2),
-    ("flow", 1, 8, 10), ("flow", 1, 12, 0), ("stereo", 1, 8, 0),
+@pytest.mark.parametrize("mode,c,psz,cost,camlr", [
+    ("flow", 1, 8, 0, 0), ("flow", 3, 8, 0, 0), ("flow", 1, 8, 1, 0), ("flow", 1, 8, 2, 0),
+    ("flow", 1, 8, 10, 0), ("flow", 1, 12, 0, 0), ("stereo", 1, 8, 0, 0),
+    ("stereo", 1, 8, 0, 1),  # the sign clamp >= 0 (fb stereo's backward search)
 ])
-def test_level_search_kernel_matches_plain(cuda, mode, c, psz, cost):
+def test_level_search_kernel_matches_plain(cuda, mode, c, psz, cost, camlr):
     cfg = DISConfig(mode=mode, channels=c, sc_f=1, sc_l=0, max_iter=8, min_iter=8,
-                    patch_size=psz, overlap=0.4 if psz == 8 else 0.75, cost=cost).validate()
+                    patch_size=psz, overlap=0.4 if psz == 8 else 0.75, cost=cost,
+                    camlr=camlr).validate()
     args = _level_args(cfg, c, cuda)
     _assert_search_equal(kernels.level_search(*args), level_search_reference(*args))
 
@@ -282,6 +290,68 @@ def test_dis_stereo_on_card_matches_cpu_and_counts_launches(cuda, c):
     cpu = dis_stereo(left, right, cfg, device="cpu")
     assert float((gpu.cpu() - cpu).abs().mean()) < 0.05
     assert float(gpu.max()) <= 0.0
+
+
+@pytest.mark.parametrize("name", ["of_int_fbcon", "of_rgb_fbcon", "de_int_fbcon"])
+def test_fbcon_goldens_on_card(cuda, name):
+    """The small forward-backward merge goldens on the card: within the
+    per-case rule of tests/test_golden.py of the reference binaries'
+    output, within 0.05 px of the CPU path, the same bits twice, and the
+    launches of a backward search per level and a backward refinement above
+    the finest level."""
+    case = {c["case"]: c for c in load_manifest()["cases"]}[name]
+    ch = 3 if case["binary"].endswith("RGB") else 1
+    mode = "stereo" if case["out"].endswith(".pfm") else "flow"
+    img1, img2 = (io.load_image(os.path.join(GOLD, case[k]), ch) for k in ("img1", "img2"))
+    cfg = _cfg_from_params([float(x) for x in case["args"]], mode, ch)
+    assert cfg.use_fb_merge
+    kernels.reset_launches()
+    gpu = dis_raw(img1, img2, cfg, device=cuda)
+    torch.cuda.synchronize()
+    routes = _routes(cfg, *img1.shape[:2])
+    levels = range(cfg.sc_f, cfg.sc_l - 1, -1)
+    refines = list(levels) + [sl for sl in levels if sl > cfg.sc_l]
+    assert kernels.launches == {
+        "level_search": 2 * routes.count("level"), "gn_search": 2 * routes.count("gn"),
+        "refine_inner": len(refines) if mode == "flow" else 0, "sor_coupled": 0,
+        "sor_scalar": 0 if mode == "flow" else sum(cfg.tv_innerit * (sl + 1) for sl in refines)}
+    gpu = gpu.cpu().numpy()
+    path = os.path.join(GOLD, case["out"])
+    golden = (io.read_pfm(path, negate=True)[..., None] if mode == "stereo"
+              else io.read_flo(path))
+    assert epe(gpu, golden) < max(2.0 * case["epe_captured"], 0.02)
+    assert epe(gpu, dis_raw(img1, img2, cfg, device="cpu").numpy()) < 0.05
+    assert np.array_equal(gpu, dis_raw(img1, img2, cfg, device=cuda).cpu().numpy())
+
+
+def test_fb_merge_same_bits_twice(cuda):
+    """The merge's scatter adds in a fixed order on the card: two merges of
+    3 pairs at op2's level 3 shape give the same bits, each pair those of
+    its own merge, and the CPU's within 1e-5."""
+    cfg = DISConfig(sc_f=0, sc_l=0, patch_size=8, overlap=0.4).validate()
+    geo = level_geometry(128, 56, cfg)
+    rng = np.random.RandomState(4)
+    b, n = 3, geo.n_patches
+
+    def result(moved):
+        return SearchResult(
+            p=torch.as_tensor(rng.randn(b, n, 2).astype(np.float32) * 2, device=cuda),
+            pt=torch.as_tensor((geo.pt_ref + rng.randn(b, n, 2) * 3 * moved).astype(np.float32),
+                               device=cuda),
+            pweight=torch.as_tensor(rng.rand(b, n, 8, 8, 1).astype(np.float32) * 8,
+                                    device=cuda),
+            converged=None)
+
+    fw, bw = result(0), result(1)
+    first = aggregate_flow_dense(fw, geo, cfg, bw_result=bw)
+    assert torch.equal(first, aggregate_flow_dense(fw, geo, cfg, bw_result=bw))
+    for i in range(b):
+        pair = [SearchResult(*(None if t is None else t[i] for t in r)) for r in (fw, bw)]
+        assert torch.equal(first[i], aggregate_flow_dense(pair[0], geo, cfg,
+                                                          bw_result=pair[1]))
+    on_cpu = [SearchResult(*(None if t is None else t.cpu() for t in r)) for r in (fw, bw)]
+    cpu = aggregate_flow_dense(on_cpu[0], geo, cfg, bw_result=on_cpu[1])
+    torch.testing.assert_close(first.cpu(), cpu, rtol=0, atol=1e-5)
 
 
 def test_wrappers_reject_bad_inputs(cuda):

@@ -2,8 +2,8 @@
 warm start and checkpoints against the JAX package's process_video (mean
 EPE, the bound of test_torch_dis.py::test_dis_flow_matches_jax), the
 batched video path's kill-and-resume (byte-identical), its padded last chunk,
-stereo's warm resume, and a run that the JAX package starts and the port
-resumes."""
+stereo's warm resume, a run that the JAX package starts and the port
+resumes, and both drivers with the forward-backward merge."""
 
 import dataclasses
 import json
@@ -15,9 +15,13 @@ from scipy.ndimage import gaussian_filter
 from golden_util import epe
 from of_dis_tpu import DISConfig
 from of_dis_tpu.parallel import video as jvideo
-from of_dis_tpu_torch import io
+from of_dis_tpu_torch import dis_raw, io
 from of_dis_tpu_torch.config import from_reference
-from of_dis_tpu_torch.parallel.video import process_video, process_video_batched
+from of_dis_tpu_torch.parallel.video import (
+    _warm_start_from,
+    process_video,
+    process_video_batched,
+)
 
 
 def _cfg(**kw):
@@ -139,11 +143,18 @@ def test_video_batched_resumes_a_jax_run(jax_runs, tmp_path):
 
 
 @pytest.mark.parametrize("driver", [process_video, process_video_batched])
-def test_video_drivers_refuse_fb_merge(driver, tmp_path):
-    """The forward-backward merge is not ported: both drivers raise, as
-    dis_raw and batched_flow do, before any pair is written."""
-    out = tmp_path / "flows"
+def test_video_drivers_run_fb_merge(driver, tmp_path):
+    """With fb-merge both drivers write, pair by pair, what a loop of fb
+    dis_raw gives: process_video warm-starts pair 1 from pair 0's flow (the
+    forward flow only), the batched driver's one chunk of 2 starts cold."""
+    frames = _frame_seq(3)
     cfg = dataclasses.replace(_port(_cfg()), use_fb_merge=True)
-    with pytest.raises(NotImplementedError, match="forward-backward"):
-        _cpu(driver, _frame_seq(3), out, cfg)
-    assert not list(out.glob("*.flo"))
+    results = _cpu(driver, frames, tmp_path / "flows", cfg,
+                   **({"batch_size": 2} if driver is process_video_batched else {}))
+    init = None
+    for i, path in results:
+        want = dis_raw(frames[i], frames[i + 1], cfg, init_flow=init, device="cpu")
+        np.testing.assert_array_equal(io.read_flo(path), want.numpy())
+        if driver is process_video:
+            init = _warm_start_from(want, cfg)
+    assert [i for i, _ in results] == [0, 1]

@@ -25,6 +25,20 @@ gray fb (B = 4) on distinct pairs through batched_flow: each pair must
 equal its own run, each kernel call of a batch its plain version on the
 same batched tensors, and every kernel in every variant at B = 1, 2, 7, 32
 its per-pair launches; it prints op2 gray pairs/s at B = 1, 8, 32.
+Before the main paths run, the graphs phase holds the port's compiled
+executables (ops/graphs.py: a CUDA graph captured once per static key and
+replayed) against eager runs (graphs.eager()): on each of the nine paths
+the capture's result, two replays, a replay on another pair and a replay
+after the lru_caches that fed the capture were cleared and memory was
+churned, all bit-equal to the eager runs, with the eager launches per
+replay; batched_flow at B = 1, 8, 32 (each pair equal to its own run);
+process_video_batched over 16 frames with warm start and two chunks
+queued (equal to the eager run and to a run resumed in the middle);
+dis_flow_timed's stage executables; and every kernel captured alone in
+each launch variant, against its plain version.  It prints each
+executable's capture ms and pool MiB.  The paths then run through their
+graphs by default; kernel-call recordings run under eager().  Pair
+latency, the profile and throughput are taken in both modes.
 It checks the outputs against the reference binaries' goldens, the port's CPU path and
 a second run (bit-identical), times pairs, profiles the device, runs the
 CLI (flow and stereo; the fb paths at -v 2, whose per-scale table must
@@ -55,6 +69,7 @@ SXM data sheet), counted from this run's inputs and GN trips.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -262,8 +277,44 @@ def sor_work(nop: int, h: int, w: int, iterations: int) -> tuple:
     return 4.0 * fields * h * w, (16.0 if nop == 1 else 31.0) * h * w * iterations
 
 
+def dispatched(name: str) -> bool:
+    """Whether a CUDA API call (cuda* or cu*) enqueues work on the device (a
+    kernel launch, a graph launch, a copy or a fill)."""
+    return name.startswith("cu") and any(w in name for w in ("Launch", "Memcpy", "Memset"))
+
+
+def profile_summary(prof, traced_ms: float, n: int, DeviceType) -> dict:
+    """Per pair (or batch) of a torch.profiler window over n of them: device
+    ops (a graph replay's nodes each counted), the host's calls that
+    enqueued them (a graph launch counted once), device busy ms, the idle
+    share of the window's wall time, the largest device items."""
+    events = prof.events()
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    host_calls = [e for e in events if e.device_type == DeviceType.CPU and dispatched(e.name)]
+    by_name = {}
+    for e in dev_events:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    host = {}
+    for e in host_calls:
+        host[e.name] = host.get(e.name, 0) + 1
+    return dict(
+        traced_wall_ms_per_pair=traced_ms,
+        device_ops_per_pair=len(dev_events) / n if dev_events else "not measured",
+        host_dispatched_ops_per_pair=len(host_calls) / n if host_calls else "not measured",
+        host_dispatch_calls_per_pair={k: c / n for k, c in sorted(host.items())},
+        device_busy_ms_per_pair=busy_ms if dev_events else "not measured",
+        device_idle_share_traced=(1.0 - busy_ms / traced_ms) if dev_events else "not measured",
+        top=[dict(name=k[:80], ms_per_pair=t / n, per_pair=c / n) for k, (t, c) in top])
+
+
 def record_calls(kernels, fn) -> dict:
-    """fn() with every kernel wrapper's calls recorded: {kernel: [(args, kwargs)]}."""
+    """fn() with every kernel wrapper's calls recorded: {kernel: [(args, kwargs)]}.
+    A graph replay calls no wrapper, so fn runs under graphs.eager()."""
+    from of_dis_tpu_torch.ops import graphs
+
     calls = {k: [] for k in KERNELS}
     orig = {k: getattr(kernels, k) for k in KERNELS}
 
@@ -276,7 +327,8 @@ def record_calls(kernels, fn) -> dict:
     try:
         for k in KERNELS:
             setattr(kernels, k, recorder(k))
-        fn()
+        with graphs.eager():
+            fn()
     finally:
         for k, f in orig.items():
             setattr(kernels, k, f)
@@ -367,6 +419,7 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
     for name, nb in BATCHED.items():
         img1, img2, cfg = inputs[name]
         a, bb = rolled_batch(img1, img2, nb)
+        batched_flow(a, bb, cfg, device=dev)  # captures _batched_padded's graph, if new
         kernels.reset_launches()
         out = batched_flow(a, bb, cfg, device=dev)
         torch.cuda.synchronize()
@@ -538,38 +591,292 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
     from of_dis_tpu_torch.ops import pyramid as pyr
     from of_dis_tpu_torch.parallel.batch import _batched_padded
 
+    from of_dis_tpu_torch.ops import graphs
+
     img1, img2, cfg = inputs["op2 gray"]
     scf = 1 << cfg.sc_f
-    throughput = {}
-    for b in THROUGHPUT_B:
+    throughput = {"graph": {}, "eager": {}}
+    for mode, b in ((m, b) for m in throughput for b in THROUGHPUT_B):
         a, bb = (pyr.pad_to_divisible(torch.as_tensor(x, device=dev), scf)
                  for x in rolled_batch(img1, img2, b))
-        _batched_padded(a, bb, cfg).cpu()
-        rates = []
-        for _ in range(THROUGHPUT_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(QUEUED):
-                last = _batched_padded(a, bb, cfg)
-            last.cpu()
-            rates.append(QUEUED * b / (time.perf_counter() - t0))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
             _batched_padded(a, bb, cfg).cpu()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3
-        throughput[str(b)] = float(np.median(rates))
+            rates = []
+            for _ in range(THROUGHPUT_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(QUEUED):
+                    last = _batched_padded(a, bb, cfg)
+                last.cpu()
+                rates.append(QUEUED * b / (time.perf_counter() - t0))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _batched_padded(a, bb, cfg).cpu()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        summary = profile_summary(prof, wall_ms / b, b, DeviceType)
+        throughput[mode][str(b)] = float(np.median(rates))
         emit("throughput", config=f"op2 gray {w0}x{h0} batched, pre-padded on the card",
-             batch=b, queued_batches=QUEUED, reps=THROUGHPUT_REPS,
+             mode=mode, batch=b, queued_batches=QUEUED, reps=THROUGHPUT_REPS,
              pairs_per_s_median=float(np.median(rates)), pairs_per_s_min=float(min(rates)),
              pairs_per_s_max=float(max(rates)), pairs_per_s_all=rates,
              profiled_batch_wall_ms=wall_ms,
-             device_busy_ms_per_pair=busy / b if busy else "not measured",
-             device_idle_share=(1.0 - busy / wall_ms) if busy else "not measured",
+             device_busy_ms_per_pair=summary["device_busy_ms_per_pair"],
+             device_idle_share=summary["device_idle_share_traced"],
+             host_dispatched_ops_per_batch=(summary["host_dispatched_ops_per_pair"] * b
+                                            if isinstance(summary["host_dispatched_ops_per_pair"],
+                                                          float) else "not measured"),
              nvidia_smi=smi)
     return throughput
+
+
+# ---- the graphs phase: compiled executables against eager runs ----
+GRAPH_B = (1, 8, 32)     # batched_flow's _batched_padded graphs, op2 gray
+VIDEO_FRAMES = 16        # process_video_batched: op2 gray's first frame moved 4 px a frame
+VIDEO_B = 4
+VIDEO_QUEUE = 2
+VIDEO_CUT = 8            # pairs a first run yields before it is stopped, then resumed
+CHURN_MIB = 512
+
+
+def clear_and_churn(torch, dev) -> None:
+    """Clear the lru_caches whose tensors graphs read (level geometry on
+    the card), then allocate, write and free CHURN_MIB of device memory."""
+    from of_dis_tpu_torch.models import dis as tdis
+    from of_dis_tpu_torch.models import grid
+
+    tdis._grid_tensors_cached.cache_clear()
+    grid._level_geometry_cached.cache_clear()
+    churn = [torch.full((64, 1 << 18), float(i), device=dev) for i in range(CHURN_MIB // 64)]
+    torch.cuda.synchronize()
+    del churn
+
+
+def _alone(kernel: str, *args, **kw):
+    """One kernel wrapper's call, for an executable that captures it alone."""
+    from of_dis_tpu_torch.ops import kernels
+
+    return getattr(kernels, kernel)(*args, **kw)
+
+
+def graphs_phase(torch, dev, inputs, calls, golden, sor_system, smi) -> dict:
+    """Every path, the batched and video drivers, dis_flow_timed and each
+    kernel through their executables (CUDA graphs), each against its eager
+    run (graphs.eager()) bit for bit; prints every executable's capture ms
+    and pool MiB.  Returns {path: pool MiB of its executable} for the
+    kernels line."""
+    import contextlib
+    import shutil
+
+    from of_dis_tpu_torch import batched_flow, eager
+    from of_dis_tpu_torch.models.inverse_search import (
+        gn_search_reference,
+        level_search_reference,
+    )
+    from of_dis_tpu_torch.models.refine import refine_inner_reference, sor_coupled_rb, sor_scalar_rb
+    from of_dis_tpu_torch.ops import graphs, kernels
+    from of_dis_tpu_torch.parallel.video import process_video, process_video_batched
+    from of_dis_tpu_torch.utils.instrument import dis_flow_timed
+
+    def first_call(fn):
+        """fn() as the first call of its keys: (result, the executables it
+        captured, its wall ms, warm-up and capture included)."""
+        before = {id(e) for e in graphs.cache.entries(dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, [e for e in graphs.cache.entries(dev) if id(e) not in before], ms
+
+    def described(e):
+        return dict(key=graphs.describe(e.key)[:160], capture_ms=e.capture_ms,
+                    pool_mib=e.pool_bytes / 2**20, launches_per_replay=e.launches,
+                    held_tensors=len(e.held))
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(kernels.launches)
+
+    h0, w0 = inputs["op2 gray"][0].shape[:2]
+    pools = {}
+    for name in PATHS:
+        img1, img2, cfg = inputs[name]
+
+        def run(a=img1, b=img2):
+            return run_path(name, a, b, cfg, dev)
+
+        with eager():
+            want, eager_launches = counted(run)
+        first, made, first_ms = first_call(run)
+        again, replay_launches = counted(run)
+        twice = run()
+        a, b = rolled_batch(img1, img2, 2)
+        with eager():
+            other_want = run(a[1], b[1])
+        other = run(a[1], b[1])
+        clear_and_churn(torch, dev)
+        after_clear = run()
+        pools[name] = sum(e.pool_bytes for e in made) / 2**20
+        line = dict(config=f"{name} {w0}x{h0}", executables=[described(e) for e in made],
+                    first_call_ms=first_ms, eager_launches=eager_launches,
+                    replay_launches=replay_launches,
+                    capture_equal_to_eager=bool(np.array_equal(first, want)),
+                    replays_equal_to_eager=bool(np.array_equal(again, want)
+                                                and np.array_equal(twice, want)),
+                    other_pair_equal_to_eager=bool(np.array_equal(other, other_want)),
+                    other_pair_differs=not np.array_equal(other_want, want),
+                    after_cache_clear_equal=bool(np.array_equal(after_clear, want)),
+                    nvidia_smi=smi)
+        case = PATHS[name][4]
+        if case is not None:
+            line["epe_vs_golden"] = epe(first, golden(case))
+        emit("graph path", **line)
+        require(len(made) == 1 and made[0].pool_bytes > 0,
+                f"{name}: captured {len(made)} executables, expected 1 with a pool: {line}")
+        require(eager_launches == expected_launches(name) == replay_launches
+                and made[0].launches == {k: n for k, n in eager_launches.items() if n},
+                f"{name}: launches eager {eager_launches}, per replay {replay_launches}")
+        require(all(line[k] for k in ("capture_equal_to_eager", "replays_equal_to_eager",
+                                      "other_pair_equal_to_eager", "other_pair_differs",
+                                      "after_cache_clear_equal")),
+                f"{name}: a graph result differs from its eager run: {line}")
+        if "epe_vs_golden" in line:
+            require(line["epe_vs_golden"] < EPE_GOLDEN, f"{name} graph: {line}")
+
+    # batched_flow through _batched_padded's graph at each b of GRAPH_B
+    img1, img2, cfg = inputs["op2 gray"]
+    for b in GRAPH_B:
+        a, bb = rolled_batch(img1, img2, b)
+
+        def run_batch():
+            return batched_flow(a, bb, cfg, device=dev).cpu().numpy()
+
+        with eager():
+            want = run_batch()
+        got, made, first_ms = first_call(run_batch)
+        again = run_batch()
+        own = [run_path("op2 gray", a[i], bb[i], cfg, dev) for i in range(b)]
+        pools[f"op2 gray B = {b}"] = sum(e.pool_bytes for e in made) / 2**20
+        line = dict(config=f"op2 gray {w0}x{h0} batched_flow", pairs=b,
+                    executables=[described(e) for e in made], first_call_ms=first_ms,
+                    equal_to_eager=bool(np.array_equal(got, want) and np.array_equal(again, want)),
+                    pairs_equal_to_own_run=sum(bool(np.array_equal(got[i], own[i]))
+                                               for i in range(b)))
+        emit("graph batched", **line)
+        require(line["equal_to_eager"] and line["pairs_equal_to_own_run"] == b,
+                f"batched graph B = {b}: {line}")
+
+    # process_video_batched: warm start chained on the card, VIDEO_QUEUE chunks
+    # pending; graph against eager, and a run stopped after VIDEO_CUT pairs
+    # and resumed (its warm start re-read from the last file written)
+    frames = [np.roll(img1, 4 * i, axis=1) for i in range(VIDEO_FRAMES)]
+    root = OUT_DIR / "video"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def video(d, mode_eager=False, stop=None):
+        done = []
+        with eager() if mode_eager else contextlib.nullcontext():
+            gen = process_video_batched(frames, root / d, cfg, batch_size=VIDEO_B,
+                                        loader=lambda x: x, queue_depth=VIDEO_QUEUE, device=dev)
+            for item in gen:
+                done.append(item)
+                if len(done) == stop:
+                    gen.close()
+                    break
+        return done
+
+    _, made, first_ms = first_call(lambda: video("graph"))
+    video("eager", mode_eager=True)
+    video("resumed", stop=VIDEO_CUT)
+    cut_at = json.loads((root / "resumed" / "progress.json").read_text())["last_completed"]
+    video("resumed")
+    n_pairs = VIDEO_FRAMES - 1
+    files = [f"flow_{i:06d}.flo" for i in range(n_pairs)]
+    same = {d: sum((root / d / f).read_bytes() == (root / "graph" / f).read_bytes() for f in files)
+            for d in ("eager", "resumed")}
+    line = dict(config=f"op2 gray {w0}x{h0} process_video_batched", frames=VIDEO_FRAMES,
+                batch_size=VIDEO_B, queue_depth=VIDEO_QUEUE, warm_start=True,
+                executables=[described(e) for e in made], first_run_ms=first_ms,
+                cut_after_pair=cut_at, files_equal_to_graph_run=same)
+    emit("graph video", **line)
+    require(same == {"eager": n_pairs, "resumed": n_pairs} and cut_at == VIDEO_CUT - 1,
+            f"video graph: {line}")
+    # process_video: a pair at a time through dis_raw, warm-started (dis_padded_init_jit)
+    for d, mode_eager in (("single graph", False), ("single eager", True)):
+        with eager() if mode_eager else contextlib.nullcontext():
+            list(process_video(frames[:VIDEO_B + 1], root / d, cfg, loader=lambda x: x,
+                               device=dev))
+    files = [f"flow_{i:06d}.flo" for i in range(VIDEO_B)]
+    line = dict(config=f"op2 gray {w0}x{h0} process_video", frames=VIDEO_B + 1,
+                warm_start=True,
+                files_equal_to_eager=sum((root / "single graph" / f).read_bytes()
+                                         == (root / "single eager" / f).read_bytes()
+                                         for f in files))
+    emit("graph video", **line)
+    require(line["files_equal_to_eager"] == VIDEO_B, f"process_video graph: {line}")
+
+    # dis_flow_timed (-v 2): one executable per stage, its result dis_raw's
+    img1, img2, cfg = inputs["op2 gray fb"]
+    out, made, first_ms = first_call(
+        lambda: dis_flow_timed(img1, img2, cfg, verbosity=0, device=dev)[0].cpu().numpy())
+    again, stats = dis_flow_timed(img1, img2, cfg, verbosity=0, device=dev)
+    want = run_path("op2 gray fb", img1, img2, cfg, dev)
+    line = dict(config=f"op2 gray fb {w0}x{h0} dis_flow_timed", stage_executables=len(made),
+                capture_ms=sum(e.capture_ms for e in made),
+                pool_mib=sum(e.pool_bytes for e in made) / 2**20,
+                equal_to_dis_raw=bool(np.array_equal(out, want)
+                                      and np.array_equal(again.cpu().numpy(), want)),
+                replay_total_ms=sum(st["total"] for st in stats))
+    emit("graph dis_flow_timed", **line)
+    require(line["equal_to_dis_raw"] and len(made) > 0, f"dis_flow_timed graph: {line}")
+
+    # every kernel captured alone, in each launch variant, against its plain
+    # version; in a cache of its own, so that the paths' executables stay held
+    kernel_cache = graphs.ExecutableCache(graphs.CudaGraphs(), len(KERNELS) * 16)
+
+    def alone(*a, **kw):
+        return kernel_cache.call(_alone, a, kw)
+
+    plain = {"level_search": level_search_reference, "gn_search": gn_search_reference,
+             "refine_inner": refine_inner_reference, "sor_scalar": sor_scalar_rb,
+             "sor_coupled": sor_coupled_rb}
+    cases = [("level_search", a, k) for a, k in calls["op2 gray"]["level_search"]]
+    cases += [("level_search", a, k) for a, k in calls["stereo gray fb"]["level_search"]
+              if k.get("camlr") == 1][:1]
+    cases += [("gn_search", a, k) for a, k in calls["op4 gray"]["gn_search"]]
+    for a, _ in calls["op2 gray"]["refine_inner"]:
+        cases += [("refine_inner", a, dict(variant=v)) for v in kernels.refine_variants(*a[0].shape)]
+    seen = set()
+    for a, _ in calls["stereo gray"]["sor_scalar"]:
+        if a[0].shape not in seen:
+            seen.add(a[0].shape)
+            cases += [("sor_scalar", a, dict(variant=v)) for v in kernels.sor_variants(*a[0].shape)]
+    for h, w in ((14, 32), (28, 64), (56, 128)):
+        a = sor_system(h, w, h * w) + (3, 1.6)
+        cases += [("sor_coupled", a, dict(variant=v)) for v in kernels.sor_variants(h, w, 2)]
+    checked = {k: [] for k in KERNELS}
+    for k, a, kw in cases:
+        alone(k, *a, **kw)  # captures
+        got, launches = counted(lambda: alone(k, *a, **kw))
+        want = plain[k](*a, **{x: y for x, y in kw.items() if x != "variant"})
+        ok = launches == {x: int(x == k) for x in KERNELS} and all(
+            (g is None and r is None) or torch.equal(g, r)
+            for g, r in zip(outputs(got), outputs(want), strict=True))
+        checked[k].append(dict(hw=list(a[0].shape[:2]), variant=kw.get("variant"), ok=ok))
+    kernel_cache.clear()
+    for k, rows in checked.items():
+        emit("graph kernel alone", kernel=k, cases=len(rows),
+             variants=sorted({str(r["variant"]) for r in rows}),
+             bit_equal_to_plain=sum(r["ok"] for r in rows), rows=rows)
+        require(rows and all(r["ok"] for r in rows),
+                f"{k}: a captured launch differs from its plain version: {rows}")
+    emit("graph executables", note="every executable held after the graphs phase",
+         count=len(graphs.cache.entries(dev)), max_per_device=graphs.MAX_EXECUTABLES,
+         executables=[described(e) for e in graphs.cache.entries(dev)])
+    return pools
 
 
 # ---- the spatial phase: one 4-rank world on cuda:0 ----
@@ -593,17 +900,13 @@ SPATIAL_TIMEOUT_S = 600
 SPATIAL_TIMED = 2   # timed pairs per path, after the counted one
 
 
-def _full_res(torch, flow, cfg, h0: int, w0: int):
+def _full_res(flow, cfg, h0: int, w0: int):
     """A padded pair's flow at scale sc_l (h_l, w_l, nop) as dis_raw returns
-    it: upscaled by 2^sc_l and cropped to (h0, w0) (models/dis.py::_dis_batch)."""
-    from of_dis_tpu_torch.ops import pyramid as pyr
+    it: upscaled by 2^sc_l and cropped to (h0, w0) (models/dis.py::_upscale_crop)."""
+    from of_dis_tpu_torch.models.dis import _upscale_crop
 
     scf = 1 << cfg.sc_f
-    hp, wp = -(-h0 // scf) * scf, -(-w0 // scf) * scf
-    t, _, l, _ = pyr.divisibility_padding(h0, w0, scf)
-    if cfg.sc_l != 0:
-        flow = pyr.resize_bilinear(flow * float(1 << cfg.sc_l), hp, wp)
-    return flow[t : t + h0, l : l + w0]
+    return _upscale_crop(flow[None], cfg, -(-h0 // scf) * scf, -(-w0 // scf) * scf, h0, w0)[0]
 
 
 def _calls_vs_plain(torch, kernels, calls) -> dict:
@@ -719,10 +1022,10 @@ def spatial_rank(rank: int, store: str, out: str) -> None:
         def run():
             """The path through its entry point: (flow(s) at full res, clamp counts)."""
             if how == "strips":
-                return _full_res(torch, spatial.spatial_flow(a, b, cfg, tx4), cfg, h0, w0), {}
+                return _full_res(spatial.spatial_flow(a, b, cfg, tx4), cfg, h0, w0), {}
             if how == "tiles":
                 f, cc = spatial.spatial_flow_tiled(a, b, cfg, m22, return_diagnostics=True)
-                return _full_res(torch, f, cfg, h0, w0), cc
+                return _full_res(f, cfg, h0, w0), cc
             if how == "flow_2d":
                 return flow_2d(a, b, cfg, dx2), {}
             return batched_flow(a, b, cfg, mesh=dm), {}
@@ -907,7 +1210,7 @@ def main() -> int:
         sor_coupled_rb,
         sor_scalar_rb,
     )
-    from of_dis_tpu_torch.ops import build, kernels
+    from of_dis_tpu_torch.ops import build, graphs, kernels
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1305,9 +1608,13 @@ def main() -> int:
         secs = json.loads(proc.stdout.strip().splitlines()[-1])["seconds"]
         return (np.load(out) if secs < CPU_LIMIT_S else None), secs
 
+    # ---- graphs: every path as a CUDA graph against its eager run ----
+    pools = graphs_phase(torch, dev, inputs, calls, golden, sor_system, smi)
+
     flows = {}
     counts = {}
     latency = {}
+    eager_latency = {}
     for name in PATHS:
         img1, img2, cfg = inputs[name]
         kernels.reset_launches()
@@ -1333,18 +1640,26 @@ def main() -> int:
             else:
                 line["epe_card_vs_cpu"] = f"not compared: the CPU pair takes >= {CPU_LIMIT_S} s"
         if name in PAIRS_TIMED:
-            for _ in range(3):
-                run_path(name, img1, img2, cfg, dev)
-            torch.cuda.synchronize()
-            pair_ms = []
-            for _ in range(PAIRS_TIMED[name]):
-                t0 = time.perf_counter()
-                run_path(name, img1, img2, cfg, dev)
+            def timed():
+                for _ in range(3):
+                    run_path(name, img1, img2, cfg, dev)
                 torch.cuda.synchronize()
-                pair_ms.append((time.perf_counter() - t0) * 1e3)
+                ms = []
+                for _ in range(PAIRS_TIMED[name]):
+                    t0 = time.perf_counter()
+                    run_path(name, img1, img2, cfg, dev)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                return ms
+
+            pair_ms = timed()
+            with graphs.eager():
+                eager_ms = timed()
             latency[name] = float(np.median(pair_ms))
+            eager_latency[name] = float(np.median(eager_ms))
             line.update(pair_ms_median=latency[name], pair_ms_min=float(np.min(pair_ms)),
-                        pairs_timed=len(pair_ms))
+                        pairs_timed=len(pair_ms), eager_pair_ms_median=eager_latency[name],
+                        eager_pair_ms_min=float(np.min(eager_ms)))
         emit("main path", **line)
         require(line["finite_and_shaped"], f"{name}: non-finite or misshapen output")
         require(line["bit_identical"], f"{name}: two runs differ")
@@ -1397,27 +1712,18 @@ def main() -> int:
 
     for name, n_prof in PROFILED.items():
         img1, img2, cfg = inputs[name]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n_prof):
+        for mode in ("graph", "eager"):
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
                 run_path(name, img1, img2, cfg, dev)
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3 / n_prof
-        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        by_name = {}
-        for e in dev_events:
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-        busy_ms = sum(t for t, _ in by_name.values()) / n_prof
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        emit("profile", config=name, pairs=n_prof, traced_wall_ms_per_pair=traced_ms,
-             device_ops_per_pair=len(dev_events) / n_prof if dev_events else "not measured",
-             device_busy_ms_per_pair=busy_ms if dev_events else "not measured",
-             device_idle_share_traced=(1.0 - busy_ms / traced_ms) if dev_events
-             else "not measured",
-             top=[dict(name=k[:80], ms_per_pair=t / n_prof, per_pair=c / n_prof)
-                  for k, (t, c) in top])
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(n_prof):
+                        run_path(name, img1, img2, cfg, dev)
+                    torch.cuda.synchronize()
+                    traced_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+            emit("profile", config=name, mode=mode, pairs=n_prof,
+                 **profile_summary(prof, traced_ms, n_prof, DeviceType))
 
     # ---- cli: flow .flo and stereo .pfm equal the library's output ----
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1511,7 +1817,10 @@ def main() -> int:
          "tile form's row is rank 0's level-0 call of op4 gray tiles and that rank's launches "
          "there, untiled_ms the untiled kernel on the same patches",
          per={k: rows[k]["per"] for k in KERNELS}, launches_per_path=counts,
-         pair_ms_median=latency, batched_pairs_per_s=throughput,
+         launches_are="per replay of the path's CUDA graph, equal to an eager run's",
+         pair_ms_median=latency, eager_pair_ms_median=eager_latency,
+         batched_pairs_per_s=throughput["graph"], eager_batched_pairs_per_s=throughput["eager"],
+         graph_pool_mib=pools,
          checks={k: "ok" for k in KERNELS},
          total_seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

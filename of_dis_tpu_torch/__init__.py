@@ -5,8 +5,11 @@ Plain tensor code is PyTorch; every TPU kernel of the JAX package is a
 hand-written CUDA kernel (csrc/level_search.cu, csrc/gn_search.cu,
 csrc/refine_inner.cu, csrc/sor_rb.cu) built with nvcc at first use
 (ops/build.py).  Entry points run on CUDA unless given device="cpu", where
-the kernels' plain PyTorch versions run instead.  Imports neither JAX nor
-of_dis_tpu.
+the kernels' plain PyTorch versions run instead.  On the card each entry
+point runs its pair or batch as a CUDA graph, captured at the first call
+for a static key (config, shapes, static arguments) and replayed after
+(ops/graphs.py, the counterpart of jax.jit); `eager()` runs them op by op
+(jax.disable_jit()).  Imports neither JAX nor of_dis_tpu.
 
 Public API:
     dis_flow(img1, img2, cfg, device=None)   -> (H, W, 2) optical flow tensor
@@ -26,10 +29,12 @@ Public API:
     viz.flow_to_color / disparity_to_gray / save_image
     utils.instrument.dis_flow_timed: dis_raw with the per-scale -v 2 table
     utils.eval: EPE and error statistics
+    eager(): a context in which every executable runs op by op
 """
 
 from .config import DISConfig, auto_first_scale, operating_point
 from .models.dis import dis_flow, dis_raw, dis_stereo
+from .ops.graphs import eager
 from .parallel.batch import batched_flow, data_mesh
 from .parallel.multihost import flow_2d, flow_2d_tiled, init_distributed, mesh_2d, mesh_3d
 from .parallel.spatial import spatial_flow, spatial_flow_tiled
@@ -54,6 +59,7 @@ __all__ = [
     "dis_flow",
     "dis_raw",
     "dis_stereo",
+    "eager",
     "io",
     "viz",
 ]

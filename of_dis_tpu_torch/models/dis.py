@@ -6,7 +6,11 @@ oflow.cpp:32-363, and the driver glue of run_dense.cpp:296-414):
     disp = dis_stereo(img1, img2, cfg)        # (H, W), left camera <= 0
     flow = dis_flow(img1, img2, cfg, device="cpu")
 
-Eager: the scale loop is a Python loop.  Per scale sl = sc_f .. sc_l
+The scale loop is a Python loop, run once per static key: on the card
+`dis_padded_jit` / `dis_padded_init_jit` (the JAX package's names,
+of_dis_tpu/models/dis.py:179-186) capture it in a CUDA graph at their first
+call for a key and replay the graph after (ops/graphs.py); on the CPU and
+under graphs.eager() it runs op by op.  Per scale sl = sc_f .. sc_l
 (oflow.cpp:184-337): templates -> init from coarser flow (2x NN lookup) ->
 level search -> deterministic densification (+ the forward-backward merge)
 -> variational refinement.  With fb-merge (cfg.use_fb_merge) a backward
@@ -18,7 +22,8 @@ decides for the level's shape: csrc/level_search.cu extracts the templates
 itself, csrc/gn_search.cu takes them from `build_templates`.  Refinement
 runs csrc/refine_inner.cu (flow) or csrc/sor_rb.cu's scalar SOR (stereo).
 Final: upscale by 2^sc_l (INTER_LINEAR, flow values scaled) and crop the
-divisibility padding (run_dense.cpp:406-414).
+divisibility padding (run_dense.cpp:406-414), outside the executables as
+in the JAX package.
 
 Every stage runs on a batch of pairs (B, Hp, Wp, C), each kernel launch
 taking all B; `dis_raw` runs one pair as a batch of one, and
@@ -35,7 +40,7 @@ import numpy as np
 import torch
 
 from ..config import DISConfig
-from ..ops import kernels
+from ..ops import graphs, kernels
 from ..ops import pyramid as pyr
 from .densify import aggregate_flow_dense
 from .grid import level_geometry
@@ -56,11 +61,20 @@ def resolve_device(device=None) -> torch.device:
 
 
 @lru_cache(maxsize=64)
-def _grid_tensors(w: int, h: int, cfg: DISConfig, device: torch.device):
-    """Level geometry plus its patch centres and coarse-init indices on `device`."""
+def _grid_tensors_cached(w: int, h: int, cfg: DISConfig, device: torch.device):
     geo = level_geometry(w, h, cfg)
     pt_ref = torch.as_tensor(geo.pt_ref, device=device)
     coarse_idx = torch.as_tensor(geo.coarse_idx, device=device).long()
+    return geo, pt_ref, coarse_idx
+
+
+def _grid_tensors(w: int, h: int, cfg: DISConfig, device: torch.device):
+    """Level geometry plus its patch centres and coarse-init indices on
+    `device`, copied there once per level shape.  A graph being captured
+    reads the two tensors from outside its pool, so its executable holds
+    them (graphs.hold): the lru_cache may drop them while the graph lives."""
+    geo, pt_ref, coarse_idx = _grid_tensors_cached(w, h, cfg, device)
+    graphs.hold(pt_ref, coarse_idx)
     return geo, pt_ref, coarse_idx
 
 
@@ -195,6 +209,32 @@ def _dis_padded(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool 
     return flow
 
 
+@graphs.executable
+def dis_padded_jit(img1, img2, cfg: DISConfig, gradmag_input: bool = False):
+    """_dis_padded without a warm start, one executable per (cfg,
+    gradmag_input, shapes): (B, Hp, Wp, C) pairs padded to divisibility by
+    2^sc_f -> (B, Hp/2^sc_l, Wp/2^sc_l, nop)."""
+    return _dis_padded(img1, img2, cfg, None, gradmag_input)
+
+
+@graphs.executable
+def dis_padded_init_jit(img1, img2, init_flow, cfg: DISConfig, gradmag_input: bool = False):
+    """_dis_padded with init_flow at scale sc_f+1, (B, h, w, nop) or (h, w,
+    nop) shared by the batch: one executable per key, its shape included."""
+    return _dis_padded(img1, img2, cfg, init_flow, gradmag_input)
+
+
+def _upscale_crop(flow, cfg: DISConfig, hp: int, wp: int, h0: int, w0: int):
+    """Flow (B, h_l, w_l, nop) at scale sc_l of (Hp, Wp) padded pairs ->
+    (B, h0, w0, nop): upscaled by 2^sc_l (run_dense.cpp:406-411: values
+    times 2^sc_l, INTER_LINEAR) and the divisibility padding cropped
+    (run_dense.cpp:414)."""
+    if cfg.sc_l != 0:
+        flow = pyr.resize_bilinear(flow * float(1 << cfg.sc_l), hp, wp)
+    t, _, l, _ = pyr.divisibility_padding(h0, w0, 1 << cfg.sc_f)
+    return flow[:, t : t + h0, l : l + w0]
+
+
 def _as_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
@@ -223,22 +263,16 @@ def _prepare(img1, img2, cfg: DISConfig, device, lead: int):
 
 def _dis_batch(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False):
     """A batch (B, H, W, C) of arbitrary size: divisibility padding,
-    pyramid, coarse-to-fine, final upscale + crop (run_dense.cpp:296-414).
-    Returns (B, H, W, nop)."""
-    h0, w0 = img1.shape[1:3]
+    pyramid, coarse-to-fine through dis_padded_jit / dis_padded_init_jit,
+    final upscale + crop (run_dense.cpp:296-414).  Returns (B, H, W, nop)."""
     scf = 1 << cfg.sc_f
-    t, _, l, _ = pyr.divisibility_padding(h0, w0, scf)
     p1 = pyr.pad_to_divisible(img1, scf)
     p2 = pyr.pad_to_divisible(img2, scf)
-
-    flow = _dis_padded(p1, p2, cfg, init_flow, gradmag_input)
-
-    # Upscale to scale 0 if the finest computed scale is coarser
-    # (run_dense.cpp:406-411): multiply values by 2^sc_l, INTER_LINEAR resize.
-    if cfg.sc_l != 0:
-        flow = pyr.resize_bilinear(flow * float(1 << cfg.sc_l), p1.shape[1], p1.shape[2])
-    # Crop divisibility padding (run_dense.cpp:414).
-    return flow[:, t : t + h0, l : l + w0]
+    if init_flow is None:
+        flow = dis_padded_jit(p1, p2, cfg, gradmag_input)
+    else:
+        flow = dis_padded_init_jit(p1, p2, init_flow, cfg, gradmag_input)
+    return _upscale_crop(flow, cfg, p1.shape[1], p1.shape[2], img1.shape[1], img1.shape[2])
 
 
 def dis_raw(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False,

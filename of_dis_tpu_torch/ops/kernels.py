@@ -30,6 +30,16 @@ refine_inner and the two SOR solvers (sor_scalar, sor_coupled) each launch
 one kernel body with the barrier the level needs: `refine_variant` and
 `sor_variant` pick a single CTA, a thread-block cluster or a cooperative
 grid from the level's shape and the number of pairs.
+
+Every wrapper can be captured in a CUDA graph (ops/graphs.py): it
+allocates its outputs and scratch with PyTorch's allocator, launches on
+the current stream, reads nothing back from the card and copies nothing
+from the host, and its branches (the variant, the pair axis) depend on
+shapes only.  The launchers' one-time queries (csrc/launch.cuh's
+PerDevice: SM count, occupancy, attributes) run in the executables'
+warm-up, before a capture.  Under replay a wrapper is not called:
+graphs.py adds the launches its capture recorded to `launches`.  Keep
+these properties when a wrapper changes.
 """
 
 from __future__ import annotations

@@ -14,6 +14,10 @@ from (the reference's disabled init-flow input, oflow.cpp:217-220).
 
 Both run on CUDA unless given device="cpu" (without a GPU they raise);
 process_video_batched also shards each chunk over a data mesh (mesh=).
+On the card process_video runs each pair through dis_raw's executable,
+and process_video_batched each chunk through `_video_chunk` and its warm
+start through `_warm_single`, executables as in the JAX package
+(of_dis_tpu/parallel/video.py:46, 121; ops/graphs.py).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 
 from .. import io
 from ..config import DISConfig
-from ..models.dis import _dis_batch, _prepare, dis_raw, resolve_device
+from ..models.dis import _dis_padded, _prepare, _upscale_crop, dis_raw, resolve_device
+from ..ops import graphs
 from ..ops.pyramid import pad_to_divisible, resize_bilinear
 from .batch import _data_slice
 from .collectives import _all_gather, _broadcast_object
@@ -46,6 +51,21 @@ def _warm_start_from(flow: torch.Tensor, cfg: DISConfig) -> torch.Tensor:
     out_h = max(1, int(padded.shape[0] * fct))
     out_w = max(1, int(padded.shape[1] * fct))
     return resize_bilinear(padded * fct, out_h, out_w)
+
+
+# One executable for the batched driver's live chain on the card and for
+# resume's read-back alike, so a resumed run's warm starts equal the
+# uninterrupted run's bit for bit.
+_warm_single = graphs.executable(_warm_start_from)
+
+
+@graphs.executable
+def _video_chunk(p1, p2, init, cfg: DISConfig, h0: int, w0: int):
+    """One chunk: (B, Hp, Wp, C) pairs pre-padded to divisibility by
+    2^sc_f, one warm start `init` on the sc_f+1 grid shared by the chunk
+    (None: a cold start) -> (B, h0, w0, nop), upscaled and cropped."""
+    flow = _dis_padded(p1, p2, cfg, init_flow=init)
+    return _upscale_crop(flow, cfg, p1.shape[1], p1.shape[2], h0, w0)
 
 
 def _pair_path(out_dir: Path, cfg: DISConfig, i: int) -> Path:
@@ -196,7 +216,7 @@ def process_video_batched(
         start_chunk, prev = _broadcast_object((start_chunk, prev), mesh, "data")
     for i in range(min(start_chunk * B, n_pairs)):
         yield i, pair_path(i)
-    init = None if prev is None else _warm_start_from(torch.as_tensor(prev, device=dev), cfg)
+    init = None if prev is None else _warm_single(torch.as_tensor(prev, device=dev), cfg)
 
     pending = []  # [(chunk start, real pairs, flows on the card)]
 
@@ -216,13 +236,14 @@ def process_video_batched(
         a, b, _ = _prepare(np.stack([np.asarray(load(frames[i]), np.float32) for i in idxs]),
                            np.stack([np.asarray(load(frames[i + 1]), np.float32) for i in idxs]),
                            cfg, dev, 1)
-        # the chunk through the batched driver, its warm start shared by all
-        # its pairs (None: cold start), as the JAX package's _video_chunk
-        flows = _dis_batch(a, b, cfg, init_flow=init if warm_start else None)
+        # the chunk, its warm start shared by all its pairs (None: cold start)
+        scf = 1 << cfg.sc_f
+        flows = _video_chunk(pad_to_divisible(a, scf), pad_to_divisible(b, scf),
+                             init if warm_start else None, cfg, a.shape[1], a.shape[2])
         if mesh is not None:
             flows = _all_gather(flows, mesh, "data", 0)
         if warm_start:
-            init = _warm_start_from(flows[c1 - c0 - 1], cfg)  # chained on the card
+            init = _warm_single(flows[c1 - c0 - 1], cfg)  # chained on the card
         pending.append((c0, c1 - c0, flows))
         if len(pending) > queue_depth:
             yield from flush_one()

@@ -6,7 +6,12 @@ Reproduces the reference's verbosity-2 output (oflow.cpp:296-304: "TIME
 the stage functions the production driver is composed of
 (models/dis.py::_stage_templates, _stage_init, _stage_optimize,
 _stage_densify, _stage_refine) one by one on one pair, a batch of one as
-dis_raw runs it.  On the card each stage ends with torch.cuda.synchronize(),
+dis_raw runs it.  On the card each stage is an executable, keyed like the
+JAX package's `_cached_jit` (of_dis_tpu/utils/instrument.py:40-54): the
+pyramids, and per level the templates, the search, the densification and
+the refinement each run as a CUDA graph captured at their first call for a
+key and replayed after (ops/graphs.py); the coarse init runs op by op, as
+there.  Each stage ends with torch.cuda.synchronize(), outside the graphs,
 so a stage's time includes its kernels; the numerics are dis_raw's, bit for
 bit, because the stage bodies, the divisibility padding and the final
 2^sc_l upscale + crop (run_dense.cpp:296-414) are the same calls.
@@ -30,8 +35,22 @@ from ..models.dis import (
     _stage_optimize,
     _stage_refine,
     _stage_templates,
+    _upscale_crop,
 )
+from ..models.grid import level_geometry
+from ..ops import graphs
 from ..ops import pyramid as pyr
+
+_pyramids_jit = graphs.executable(_pyramids)
+_templates_jit = graphs.executable(_stage_templates)
+_optimize_jit = graphs.executable(_stage_optimize)
+_refine_jit = graphs.executable(_stage_refine)
+
+
+@graphs.executable
+def _densify_jit(res_fw, res_bw, sl: int, w: int, h: int, cfg: DISConfig):
+    """_stage_densify of the (w, h) level, whose geometry is static."""
+    return _stage_densify(res_fw, res_bw, sl, level_geometry(w, h, cfg), cfg)
 
 
 def dis_flow_timed(
@@ -64,14 +83,13 @@ def dis_flow_timed(
 
     h0, w0 = img1.shape[:2]
     scf = 1 << cfg.sc_f
-    t, _, l, _ = pyr.divisibility_padding(h0, w0, scf)
     p1 = pyr.pad_to_divisible(img1[None], scf)
     p2 = pyr.pad_to_divisible(img2[None], scf)
     h, w = p1.shape[1:3]
     pad = cfg.patch_size
 
     t0 = clock()
-    im1s, dx1s, dy1s, im2s, dx2s, dy2s = _pyramids(p1, p2, cfg, gradmag_input)
+    im1s, dx1s, dy1s, im2s, dx2s, dy2s = _pyramids_jit(p1, p2, cfg, gradmag_input)
     t_pyr = clock(t0)
     if v > 1:
         print(f"TIME (Pyramide+Gradients) (ms): {t_pyr:3g}")
@@ -86,8 +104,8 @@ def dis_flow_timed(
         n = geo.n_patches
 
         t0 = clock()
-        tmpl_fw, tmpl_bw = _stage_templates(im1s[sl], dx1s[sl], dy1s[sl], im2s[sl], dx2s[sl],
-                                            dy2s[sl], pt_ref, cfg, pad)
+        tmpl_fw, tmpl_bw = _templates_jit(im1s[sl], dx1s[sl], dy1s[sl], im2s[sl], dx2s[sl],
+                                          dy2s[sl], pt_ref, cfg, pad)
         t_const = clock(t0)
 
         t0 = clock()
@@ -96,19 +114,19 @@ def dis_flow_timed(
         t_init = clock(t0)
 
         t0 = clock()
-        res_fw, res_bw = _stage_optimize(im1s[sl], im2s[sl], tmpl_fw, tmpl_bw, pt_ref, p0, p0b,
-                                         cfg, lw, lh, pad)
+        res_fw, res_bw = _optimize_jit(im1s[sl], im2s[sl], tmpl_fw, tmpl_bw, pt_ref, p0, p0b,
+                                       cfg, lw, lh, pad)
         t_opt = clock(t0)
 
         t0 = clock()
-        flow, flow_bw = _stage_densify(res_fw, res_bw, sl, geo, cfg)
+        flow, flow_bw = _densify_jit(res_fw, res_bw, sl, lw, lh, cfg)
         t_dens = clock(t0)
 
         t_tv = 0.0
         if cfg.use_tv_refine:
             t0 = clock()
-            flow, flow_bw = _stage_refine(flow, flow_bw, im1s[sl][:, pad:-pad, pad:-pad],
-                                          im2s[sl][:, pad:-pad, pad:-pad], sl, cfg)
+            flow, flow_bw = _refine_jit(flow, flow_bw, im1s[sl][:, pad:-pad, pad:-pad],
+                                        im2s[sl][:, pad:-pad, pad:-pad], sl, cfg)
             t_tv = clock(t0)
 
         total = t_const + t_init + t_opt + t_dens + t_tv
@@ -124,6 +142,4 @@ def dis_flow_timed(
         print(f"TIME (O.Flow Run-Time   ) (ms): {sum(s['total'] for s in stats):3g}")
 
     # Final upscale + divisibility crop (run_dense.cpp:406-414), as dis_raw.
-    if cfg.sc_l != 0:
-        flow = pyr.resize_bilinear(flow * float(1 << cfg.sc_l), h, w)
-    return flow[0, t : t + h0, l : l + w0], stats
+    return _upscale_crop(flow, cfg, h, w, h0, w0)[0], stats

@@ -263,7 +263,8 @@ def test_dis_flow_on_card_matches_cpu_and_counts_launches(cuda, op):
     img1, img2 = _smooth_pair(h=96, w=128)
     cfg = operating_point(op, 128)
     routes = _routes(cfg, 96, 128)
-    kernels.reset_launches()
+    dis_flow(img1, img2, cfg, device=cuda)  # captures the path's graph (ops/graphs.py)
+    kernels.reset_launches()  # a replay's launches from here
     gpu = dis_flow(img1, img2, cfg, device=cuda)
     torch.cuda.synchronize()
     assert kernels.launches == {
@@ -281,7 +282,8 @@ def test_dis_stereo_on_card_matches_cpu_and_counts_launches(cuda, c):
     left, right = left[:, :128], left[:, 3:131]
     cfg = operating_point(2, 128, mode="stereo", channels=c)
     routes = _routes(cfg, 96, 128)
-    kernels.reset_launches()
+    dis_stereo(left, right, cfg, device=cuda)  # captures the path's graph (ops/graphs.py)
+    kernels.reset_launches()  # a replay's launches from here
     gpu = dis_stereo(left, right, cfg, device=cuda)
     torch.cuda.synchronize()
     assert kernels.launches == {
@@ -307,7 +309,8 @@ def test_fbcon_goldens_on_card(cuda, name):
     img1, img2 = (io.load_image(os.path.join(GOLD, case[k]), ch) for k in ("img1", "img2"))
     cfg = _cfg_from_params([float(x) for x in case["args"]], mode, ch)
     assert cfg.use_fb_merge
-    kernels.reset_launches()
+    dis_raw(img1, img2, cfg, device=cuda)  # captures the path's graph (ops/graphs.py)
+    kernels.reset_launches()  # a replay's launches from here
     gpu = dis_raw(img1, img2, cfg, device=cuda)
     torch.cuda.synchronize()
     routes = _routes(cfg, *img1.shape[:2])

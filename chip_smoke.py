@@ -39,6 +39,17 @@ each launch variant, against its plain version.  It prints each
 executable's capture ms and pool MiB.  The paths then run through their
 graphs by default; kernel-call recordings run under eager().  Pair
 latency, the profile and throughput are taken in both modes.
+The video files phase writes op2 gray's first frame, rolled 4 px a frame,
+as 193 8-bit .pgm files and runs process_video_batched over them (chunks
+of 32, 4 queued, the native PNM reader and .flo writer): a run without
+warm start must write what io.write_flo writes of batched_flow on the same
+frames, byte for byte, the warm-started runs must agree, each chunk must
+cost the host one wait (ops/transfer.py's counts); it prints pairs/s, the
+host's seconds per chunk by part, the copies' GB/s and the device's busy
+and idle share, and times the runs again, in turns, with the copies moved
+onto an upload and a download stream of their own (from the files and
+from the same frames in memory).  Every result a path returns is copied
+to the host through pinned memory (transfer.to_host).
 It checks the outputs against the reference binaries' goldens, the port's CPU path and
 a second run (bit-identical), times pairs, profiles the device, runs the
 CLI (flow and stereo; the fb paths at -v 2, whose per-scale table must
@@ -179,12 +190,15 @@ def call_levels(cfg, calls_per_level, search: bool = False) -> list:
 
 
 def run_path(name: str, img1, img2, cfg, device) -> np.ndarray:
-    """One pair through the path's entry point: (H, W, nop) on the host."""
+    """One pair through the path's entry point: (H, W, nop) on the host,
+    copied there as a user's result is (ops/transfer.py: through pinned
+    memory, waiting for this result only)."""
     from of_dis_tpu_torch import dis_flow, dis_stereo
+    from of_dis_tpu_torch.ops.transfer import to_host
 
     if cfg.mode == "stereo":
-        return dis_stereo(img1, img2, cfg, device=device)[..., None].cpu().numpy()
-    return dis_flow(img1, img2, cfg, device=device).cpu().numpy()
+        return to_host(dis_stereo(img1, img2, cfg, device=device)[..., None]).numpy()
+    return to_host(dis_flow(img1, img2, cfg, device=device)).numpy()
 
 
 def cpu_run_to(name: str, out: str) -> None:
@@ -302,6 +316,8 @@ def profile_summary(prof, traced_ms: float, n: int, DeviceType) -> dict:
         host[e.name] = host.get(e.name, 0) + 1
     return dict(
         traced_wall_ms_per_pair=traced_ms,
+        copy_ms_per_pair={k: t / n for k, (t, _) in sorted(by_name.items())
+                          if k.startswith("Memcpy")},
         device_ops_per_pair=len(dev_events) / n if dev_events else "not measured",
         host_dispatched_ops_per_pair=len(host_calls) / n if host_calls else "not measured",
         host_dispatch_calls_per_pair={k: c / n for k, c in sorted(host.items())},
@@ -877,6 +893,267 @@ def graphs_phase(torch, dev, inputs, calls, golden, sor_system, smi) -> dict:
          count=len(graphs.cache.entries(dev)), max_per_device=graphs.MAX_EXECUTABLES,
          executables=[described(e) for e in graphs.cache.entries(dev)])
     return pools
+
+
+# ---- the video files phase: process_video_batched fed from .pgm files ----
+FILE_B = 32              # pairs per chunk, as the JAX package's benchmark batch
+FILE_CHUNKS = 6          # 1 + 32 x 6 = 193 frames
+FILE_QUEUE = 4
+FILE_RUNS = 3            # timed runs, after one warm run
+COPY_REPS = 5            # timed copies of a chunk in each direction
+
+
+def busy_union_ms(dev_events) -> float:
+    """ms in which at least one device op runs (copies on their own streams
+    overlap the kernels, so the sum of op times would count time twice)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    total, end = 0.0, None
+    for s0, s1 in spans:
+        if end is None or s0 > end:
+            total += s1 - s0
+            end = s1
+        elif s1 > end:
+            total += s1 - end
+            end = s1
+    return total / 1e3
+
+
+def copy_gb_per_s(torch, dev, fn, nbytes: int) -> tuple:
+    """GB/s of the copy fn() queues on the current stream, from CUDA events
+    on that stream (the stream first sleeps past the host's staging, so the
+    events bracket the copy alone), and the host's ms in fn() (staging and
+    queueing)."""
+    cur = torch.cuda.current_stream(dev)
+    rates, host_ms = [], []
+    for _ in range(COPY_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e8))
+        start.record(cur)
+        t0 = time.perf_counter()
+        out = fn()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record(cur)
+        end.synchronize()
+        rates.append(nbytes / (start.elapsed_time(end) * 1e-3) / 1e9)
+        del out
+    return rates, host_ms
+
+
+@contextlib.contextmanager
+def two_copy_streams(torch, dev):
+    """ops/transfer.py's copies moved onto an upload and a download stream
+    of their own, beside the compute stream, for the video files phase's
+    comparison (the package queues them on the compute stream): the
+    compute stream waits on an event after each upload, the download
+    stream on one after the result's last op, and record_stream keeps
+    each tensor's memory from the allocator until the other stream is done
+    with it."""
+    from of_dis_tpu_torch.ops import transfer
+    from of_dis_tpu_torch.parallel import video
+
+    up, down = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+
+    def upload(host, device):
+        cur = torch.cuda.current_stream(device)
+        with torch.cuda.stream(up):
+            t = torch.empty(host.shape, dtype=host.dtype, device=device)
+            t.copy_(host, non_blocking=True)
+        cur.wait_event(up.record_event())
+        t.record_stream(cur)
+        transfer.counts["uploads"] += 1
+        return t
+
+    def to_host(t):
+        down.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(down):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+        t.record_stream(down)
+        transfer.counts["downloads"] += 1
+        return transfer.HostCopy(host, down.record_event())
+
+    saved = transfer._upload, video.to_host
+    transfer._upload, video.to_host = upload, to_host
+    try:
+        yield
+    finally:
+        transfer._upload, video.to_host = saved
+
+
+def video_files_phase(torch, dev, inputs, smi) -> dict:
+    """process_video_batched over op2 gray frames on disk: of1.png as 8-bit
+    gray, rolled ROLL_PX a frame, 1 + FILE_B x FILE_CHUNKS frames written as
+    .pgm; the default loader (the port's native PNM reader) and native .flo
+    writes.  A run without warm start must write, byte for byte, what
+    io.write_flo writes of batched_flow on the same frames in memory; the
+    warm-started runs (the default) must agree with one another and, in
+    the first chunk, with it.  Each run waits once per chunk on the host.
+    Prints pairs/s (median of FILE_RUNS timed runs after a warm one), the
+    host's seconds per chunk by part, the copies' GB/s and the device's
+    busy and idle share over one profiled run.  Then it times the package's
+    copies (on the compute stream) against two_copy_streams, FILE_RUNS runs
+    each in turns (A B B A A B), from the files and from the same frames
+    held in memory (loader=lambda a: a); every run writes the same files."""
+    import shutil
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from of_dis_tpu_torch import batched_flow, io, native
+    from of_dis_tpu_torch.ops import kernels, transfer
+    from of_dis_tpu_torch.parallel import video
+
+    require(native.available(), "the native codec is not available")
+    img1, _, cfg = inputs["op2 gray"]
+    h0, w0 = img1.shape[:2]
+    base = img1[..., 0].astype(np.uint8)
+    require(np.array_equal(base, img1[..., 0]), "of1.png as gray is not 8-bit")
+    root = OUT_DIR / "video_files"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "frames").mkdir(parents=True)
+    n_frames, n_pairs = 1 + FILE_B * FILE_CHUNKS, FILE_B * FILE_CHUNKS
+    paths = []
+    for k in range(n_frames):
+        paths.append(root / "frames" / f"frame_{k:04d}.pgm")
+        with open(paths[-1], "wb") as f:
+            f.write(f"P5\n{w0} {h0}\n255\n".encode())
+            f.write(np.roll(base, ROLL_PX * k, axis=1).tobytes())
+
+    def run(d, warm_start=True, src=paths, loader=None):
+        """One run into a fresh directory: (yielded pairs, seconds, launches,
+        transfer counts, host seconds)."""
+        shutil.rmtree(root / d, ignore_errors=True)
+        kernels.reset_launches()
+        transfer.reset_counts()
+        video.reset_host_seconds()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = list(video.process_video_batched(src, root / d, cfg, batch_size=FILE_B,
+                                               loader=loader, queue_depth=FILE_QUEUE,
+                                               warm_start=warm_start, device=dev))
+        secs = time.perf_counter() - t0
+        return (out, secs, dict(kernels.launches), dict(transfer.counts),
+                dict(video.host_seconds))
+
+    def files(d):
+        return [(root / d / f"flow_{i:06d}.flo").read_bytes() for i in range(n_pairs)]
+
+    run("warm")  # captures the chunk's executables, fills the pinned pool
+    # no warm start: each chunk is a batched_flow call on the same frames
+    cold, _, _, cold_counts, _ = run("cold", warm_start=False)
+    frames = [io.load_image(p) for p in paths]
+    cold_equal = 0
+    ref = root / "ref.flo"
+    for j in range(FILE_CHUNKS):
+        idx = range(j * FILE_B, (j + 1) * FILE_B)
+        flows = transfer.to_host(batched_flow(np.stack([frames[i] for i in idx]),
+                                              np.stack([frames[i + 1] for i in idx]),
+                                              cfg, device=dev)).numpy()
+        for k, i in enumerate(idx):
+            io.write_flo(ref, flows[k])
+            cold_equal += ref.read_bytes() == (root / "cold" / f"flow_{i:06d}.flo").read_bytes()
+    cold_files = files("cold")
+    shutil.rmtree(root / "cold")
+
+    timed = [run(f"run{r}") for r in range(FILE_RUNS)]
+    first = files("run0")
+    same_runs = sum(files(f"run{r}") == first for r in range(1, FILE_RUNS))
+    same_chunk0 = sum(first[i] == cold_files[i] for i in range(FILE_B))
+    for r in range(1, FILE_RUNS):
+        shutil.rmtree(root / f"run{r}")
+    out, _, launches, counts, _ = timed[0]
+    want_launches = {k: FILE_CHUNKS * n for k, n in expected_launches("op2 gray").items()}
+    rates = [n_pairs / t[1] for t in timed]
+    host = {k: float(np.median([t[4][k] for t in timed])) / FILE_CHUNKS
+            for k in video.host_seconds}
+
+    # the package's copies against copies on streams of their own, in turns
+    layouts = {"one stream (package)": contextlib.nullcontext,
+               "two copy streams": lambda: two_copy_streams(torch, dev)}
+    one, two = layouts
+    turns = (one, two, two, one, one, two)  # FILE_RUNS of each
+    streams = {f"{w} / {lay}": [] for w in ("files", "memory") for lay in layouts}
+    streams_same = 0
+    for w, src, loader in (("files", paths, None), ("memory", frames, lambda a: a)):
+        for k, lay in enumerate(turns):
+            with layouts[lay]():
+                got, secs, _, cmp_counts, _ = run(f"cmp{k}", src=src, loader=loader)
+            streams[f"{w} / {lay}"].append(n_pairs / secs)
+            streams_same += (len(got) == n_pairs and files(f"cmp{k}") == first
+                             and cmp_counts == counts)
+            shutil.rmtree(root / f"cmp{k}")
+
+    # the copies of one chunk
+    stack = [frames[i] for i in range(FILE_B)]
+    h2d_bytes = FILE_B * h0 * w0 * 4
+    flows_dev = batched_flow(np.stack(stack), np.stack(frames[1:FILE_B + 1]), cfg, device=dev)
+    d2h_bytes = flows_dev.numel() * 4
+    torch.cuda.synchronize()
+    h2d, stage_ms = copy_gb_per_s(torch, dev,
+                                  lambda: transfer.stack_to_device(stack, FILE_B, dev),
+                                  h2d_bytes)
+    d2h, _ = copy_gb_per_s(torch, dev, lambda: transfer.to_host(flows_dev), d2h_bytes)
+
+    # where a frame's load goes: the file's bytes, the native decode, load_image
+    def frame_ms(fn):
+        t0 = time.perf_counter()
+        for p in paths[:FILE_B]:
+            fn(p)
+        return (time.perf_counter() - t0) * 1e3 / FILE_B
+
+    per_frame = dict(read_bytes=frame_ms(lambda p: p.read_bytes()),
+                     native_read_pnm=frame_ms(native.read_pnm), load_image=frame_ms(io.load_image))
+
+    # one profiled run: device busy (the union of its ops' spans) and idle
+    shutil.rmtree(root / "profiled", ignore_errors=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        list(video.process_video_batched(paths, root / "profiled", cfg, batch_size=FILE_B,
+                                         queue_depth=FILE_QUEUE, device=dev))
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = busy_union_ms(dev_events)
+    summary = profile_summary(prof, traced_ms / FILE_CHUNKS, FILE_CHUNKS, DeviceType)
+    shutil.rmtree(root / "profiled")
+    line = dict(
+        config=f"op2 gray {w0}x{h0} process_video_batched from .pgm files", frames=n_frames,
+        batch_size=FILE_B, queue_depth=FILE_QUEUE, chunks=FILE_CHUNKS,
+        native_codec=native.available(), pairs_yielded=len(out),
+        launches=launches, expected_launches=want_launches, transfer_counts=counts,
+        cold_run_transfer_counts=cold_counts,
+        cold_files_equal_to_batched_flow=cold_equal,
+        warm_runs_equal_to_first=same_runs, first_chunk_equal_to_cold=same_chunk0,
+        pairs_per_s_median=float(np.median(rates)), pairs_per_s_all=rates,
+        run_seconds_all=[t[1] for t in timed],
+        host_s_per_chunk_median=host,
+        streams_pairs_per_s_median={k: float(np.median(v)) for k, v in streams.items()},
+        streams_pairs_per_s_all=streams, streams_runs_equal_to_first=streams_same,
+        h2d_gb_per_s_median=float(np.median(h2d)), h2d_gb_per_s_all=h2d, h2d_bytes=h2d_bytes,
+        d2h_gb_per_s_median=float(np.median(d2h)), d2h_gb_per_s_all=d2h, d2h_bytes=d2h_bytes,
+        stage_host_ms_per_stack_median=float(np.median(stage_ms)), frame_ms=per_frame,
+        profiled_run_ms=traced_ms, device_busy_ms=busy_ms,
+        device_busy_ms_summed=sum(e.time_range.elapsed_us() for e in dev_events) / 1e3,
+        device_idle_share=1.0 - busy_ms / traced_ms,
+        copy_ms_per_chunk=summary["copy_ms_per_pair"],
+        host_dispatch_calls_per_chunk=summary["host_dispatch_calls_per_pair"],
+        top_per_chunk=summary["top"], nvidia_smi=smi)
+    emit("video files", **line)
+    require(len(out) == n_pairs and [i for i, _ in out] == list(range(n_pairs)),
+            f"video files: yielded {len(out)} pairs")
+    require(launches == want_launches, f"video files: launches {launches}")
+    require(counts == {"uploads": 2 * FILE_CHUNKS, "downloads": FILE_CHUNKS,
+                       "host_waits": FILE_CHUNKS}
+            and cold_counts == counts, f"video files: not one host wait per chunk: {line}")
+    require(cold_equal == n_pairs, f"video files: {n_pairs - cold_equal} files differ from "
+            "io.write_flo of batched_flow on the same frames")
+    require(same_runs == FILE_RUNS - 1 and same_chunk0 == FILE_B,
+            f"video files: warm-started runs differ: {same_runs}, chunk 0 {same_chunk0}")
+    require(streams_same == 2 * len(turns),
+            f"video files: {2 * len(turns) - streams_same} stream-comparison runs differ")
+    shutil.rmtree(root, ignore_errors=True)
+    return line
 
 
 # ---- the spatial phase: one 4-rank world on cuda:0 ----
@@ -1725,6 +2002,9 @@ def main() -> int:
             emit("profile", config=name, mode=mode, pairs=n_prof,
                  **profile_summary(prof, traced_ms, n_prof, DeviceType))
 
+    # ---- video files: the batched video driver fed from .pgm files ----
+    video_files = video_files_phase(torch, dev, inputs, smi)
+
     # ---- cli: flow .flo and stereo .pfm equal the library's output ----
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     for name, files, out_name in (("op2 gray", OF, "of_int_op2.flo"),
@@ -1820,6 +2100,7 @@ def main() -> int:
          launches_are="per replay of the path's CUDA graph, equal to an eager run's",
          pair_ms_median=latency, eager_pair_ms_median=eager_latency,
          batched_pairs_per_s=throughput["graph"], eager_batched_pairs_per_s=throughput["eager"],
+         video_files_pairs_per_s=video_files["pairs_per_s_median"],
          graph_pool_mib=pools,
          checks={k: "ok" for k in KERNELS},
          total_seconds=time.perf_counter() - T_START)

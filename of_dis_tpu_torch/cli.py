@@ -27,6 +27,7 @@ import sys
 from . import io
 from .config import DISConfig, operating_point
 from .models.dis import dis_raw, resolve_device
+from .ops.transfer import to_device, to_host
 from .utils.timing import StageTimer
 
 
@@ -113,13 +114,11 @@ def main(argv=None) -> int:
 
     init_flow = None
     if args.init_flow:
-        import torch
-
         from .ops.pyramid import pad_to_divisible, resize_bilinear
 
         # resize to scale sc_f+1 like the reference's (disabled) init path
         # (run_dense.cpp:355-378): scale values and resample.
-        init = torch.as_tensor(io.read_flo(args.init_flow), device=device)
+        init = to_device(io.read_flo(args.init_flow), device)
         padded = pad_to_divisible(init, 1 << cfg.sc_f)
         fct = 2.0 ** (-cfg.sc_f - 1)
         init_flow = resize_bilinear(
@@ -134,11 +133,11 @@ def main(argv=None) -> int:
         out, _ = dis_flow_timed(img1, img2, cfg, verbosity=args.verbosity,
                                 gradmag_input=args.gradmag, init_flow=init_flow,
                                 device=device)
-        out = out.cpu().numpy()
+        out = to_host(out).numpy()
     else:
         with timer.stage("O.Flow Run-Time", sync=device):
-            out = dis_raw(img1, img2, cfg, init_flow=init_flow, gradmag_input=args.gradmag,
-                          device=device).cpu().numpy()
+            out = to_host(dis_raw(img1, img2, cfg, init_flow=init_flow,
+                                  gradmag_input=args.gradmag, device=device)).numpy()
 
     with timer.stage("Saving flow file"):
         if mode == "flow":

@@ -8,10 +8,13 @@ Byte-compatible with the reference writers (run_dense.cpp:16-128):
     (SavePFMFile, run_dense.cpp:60-81 — internal left-camera disparity is <= 0
     per the clamp in patch.cpp:188-193, so the file holds positive values).
 
-Pure numpy; no OpenCV dependency.  Image loading uses PIL/imageio when
-available, and reads .npy / .pgm / .ppm itself.  A copy of of_dis_tpu/io.py
-without the optional C++ codec: the bytes written are the same
-(tests/test_torch_config.py).
+No OpenCV dependency.  Image loading uses PIL/imageio when available, and
+reads .npy / .pgm / .ppm itself.  A copy of of_dis_tpu/io.py: where that
+module uses the JAX package's C++ codec, this one uses the port's own
+(native.py: .flo write and read, .pfm write, PNM input), built at first
+use; the NumPy code beside it is the plain version and writes the same
+bytes (tests/test_torch_config.py, tests/test_torch_host.py).
+OF_DIS_NATIVE=0 runs the NumPy code only.
 """
 
 from __future__ import annotations
@@ -21,15 +24,20 @@ from pathlib import Path
 
 import numpy as np
 
+from . import native
+
 _FLO_MAGIC = b"PIEH"
 _FLO_MAGIC_FLOAT = 202021.25  # == struct.unpack('<f', b'PIEH')
 
 
 def write_flo(path, flow: np.ndarray) -> None:
-    """Write (H, W, 2) float32 flow as Middlebury .flo (run_dense.cpp:16-57)."""
+    """Write (H, W, 2) float32 flow as Middlebury .flo (run_dense.cpp:16-57),
+    through the C++ codec unless OF_DIS_NATIVE=0."""
     flow = np.asarray(flow, dtype=np.float32)
     if flow.ndim != 3 or flow.shape[2] != 2:
         raise ValueError(f".flo needs (H, W, 2), got {flow.shape}")
+    if native.write_flo(path, flow):
+        return
     h, w = flow.shape[:2]
     with open(path, "wb") as f:
         f.write(_FLO_MAGIC)
@@ -39,6 +47,9 @@ def write_flo(path, flow: np.ndarray) -> None:
 
 def read_flo(path) -> np.ndarray:
     """Read Middlebury .flo into (H, W, 2) float32 (ReadFlowFile, run_dense.cpp:84-128)."""
+    flow = native.read_flo(path)
+    if flow is not None:
+        return flow
     with open(path, "rb") as f:
         magic = f.read(4)
         if magic != _FLO_MAGIC:
@@ -58,6 +69,8 @@ def write_pfm(path, disparity: np.ndarray, negate: bool = True) -> None:
     d = np.asarray(disparity, dtype=np.float32)
     if d.ndim != 2:
         raise ValueError(f".pfm needs (H, W), got {d.shape}")
+    if native.write_pfm(path, d, negate):
+        return
     h, w = d.shape
     out = -d if negate else d
     with open(path, "wb") as f:
@@ -97,7 +110,7 @@ def _bgr_to_gray_u8(img: np.ndarray) -> np.ndarray:
 
 
 def _read_pnm_numpy(path) -> np.ndarray:
-    """Binary P5/P6 PNM reader."""
+    """Binary P5/P6 PNM reader (the plain version of native.read_pnm)."""
     with open(path, "rb") as f:
         data = f.read()
     tokens = []
@@ -134,7 +147,9 @@ def load_image(path, channels: int = 1) -> np.ndarray:
     if path.suffix == ".npy":
         arr = np.load(path)
     elif path.suffix in (".pgm", ".ppm", ".pnm"):
-        arr = _read_pnm_numpy(path)
+        arr = native.read_pnm(path)
+        if arr is None:
+            arr = _read_pnm_numpy(path)
     else:
         arr = None
         try:

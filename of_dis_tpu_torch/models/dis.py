@@ -36,12 +36,12 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..config import DISConfig
 from ..ops import graphs, kernels
 from ..ops import pyramid as pyr
+from ..ops.transfer import to_device
 from .densify import aggregate_flow_dense
 from .grid import level_geometry
 from .inverse_search import PatchTemplates, build_templates
@@ -235,19 +235,13 @@ def _upscale_crop(flow, cfg: DISConfig, hp: int, wp: int, h0: int, w0: int):
     return flow[:, t : t + h0, l : l + w0]
 
 
-def _as_tensor(x, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
-
-
 def _prepare(img1, img2, cfg: DISConfig, device, lead: int):
     """Validated (..., H, W, C) float32 tensors of a pair (lead 0) or a batch
     (lead 1) on the resolved device, and that device."""
     cfg.validate()
     dev = resolve_device(device)
-    img1 = _as_tensor(img1, dev)
-    img2 = _as_tensor(img2, dev)
+    img1 = to_device(img1, dev)
+    img2 = to_device(img2, dev)
     if img1.ndim == lead + 2:
         img1 = img1[..., None]
         img2 = img2[..., None]
@@ -282,7 +276,7 @@ def dis_raw(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = Fa
     crop (run_dense.cpp:296-414), as a batch of one pair.  Returns an (H, W,
     nop) float32 tensor on `device` (CUDA unless given)."""
     img1, img2, dev = _prepare(img1, img2, cfg, device, 0)
-    init = None if init_flow is None else _as_tensor(init_flow, dev)
+    init = None if init_flow is None else to_device(init_flow, dev)
     return _dis_batch(img1[None], img2[None], cfg, init, gradmag_input)[0]
 
 

@@ -11,6 +11,11 @@ lists.  Nothing from outside the package's `csrc/` is compiled.
 `--fmad=false` keeps each multiply and add separately rounded, as in the
 plain PyTorch versions the kernels are held against; the kernels are
 bound by latency, not by arithmetic.
+
+The host codecs (`csrc/<name>.cpp`, native.py) build the same way with the
+host compiler (`$CXX`, else `g++`) through `build_host`, at first use, into
+the same directory; a `.cpp` is never given to nvcc.  A failed build of
+either kind raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -30,10 +35,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-Wextra"]
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-build_log: Dict[str, str] = {}  # nvcc's output (ptxas register/smem report) per source
+_libs: Dict[str, ctypes.CDLL] = {}  # loaded libraries, by source name
+build_log: Dict[str, str] = {}  # the compiler's output (nvcc: ptxas register/smem report)
 
 
 def nvcc_path() -> str:
@@ -48,42 +54,69 @@ def nvcc_path() -> str:
                        "with the CUDA toolkit (set CUDA_HOME)")
 
 
+def _cxx() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
 def _lib_path(src: Path) -> Path:
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library of a .cu (named by its source, the shared headers and the
+    flags) or of a .cpp (its source, the host compiler and the flags)."""
+    if src.suffix == ".cu":
+        key = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))) \
+            + " ".join(NVCC_FLAGS).encode()
+    else:
+        key = _cxx().encode() + " ".join(CXX_FLAGS).encode()
+    digest = hashlib.sha256(src.read_bytes() + key).hexdigest()
     return BUILD_DIR / f"lib{src.stem}_{digest[:16]}.so"
+
+
+def _command(src: Path, out: Path) -> list:
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [_cxx(), *CXX_FLAGS, str(src), "-o", str(out)]
+
+
+def _build(srcs) -> Dict[str, ctypes.CDLL]:
+    """Compile each of srcs whose library is not on disk (all in parallel),
+    load each not yet loaded, and return them by source name.  Holds
+    _lock."""
+    outs = {src: _lib_path(src) for src in srcs}
+    todo = [s for s, out in outs.items() if s.stem not in _libs and not out.exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for src in todo:
+            tmp = outs[src].with_suffix(f".{os.getpid()}.tmp")
+            cmd = _command(src, tmp)
+            procs.append((src, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, tmp, cmd, proc in procs:
+            log, _ = proc.communicate()
+            build_log[src.stem] = log
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}:\n{log}")
+            else:
+                os.replace(tmp, outs[src])  # atomic: concurrent builders never see half a file
+        if failed:
+            raise RuntimeError("build failed:\n" + "\n".join(failed))
+    for src, out in outs.items():
+        if src.stem not in _libs:
+            _libs[src.stem] = ctypes.CDLL(str(out))
+    return {src.stem: _libs[src.stem] for src in srcs}
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile every csrc/*.cu not yet built (in parallel) and load all."""
     with _lock:
-        srcs = sorted(CSRC.glob("*.cu"))
-        todo = [s for s in srcs if s.stem not in _libs and not _lib_path(s).exists()]
-        if todo:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            nvcc = nvcc_path()
-            procs = []
-            for src in todo:
-                out = _lib_path(src)
-                tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-                procs.append((src, out, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-            failed = []
-            for src, out, tmp, proc in procs:
-                log, _ = proc.communicate()
-                build_log[src.stem] = log
-                if proc.returncode != 0:
-                    failed.append(f"{src.name}:\n{log}")
-                else:
-                    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-            if failed:
-                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        for src in srcs:
-            if src.stem not in _libs:
-                _libs[src.stem] = ctypes.CDLL(str(_lib_path(src)))
-        return dict(_libs)
+        return _build(sorted(CSRC.glob("*.cu")))
+
+
+def build_host(name: str) -> ctypes.CDLL:
+    """csrc/<name>.cpp compiled with the host compiler ($CXX, else g++),
+    built at first use and loaded once."""
+    with _lock:
+        return _build([CSRC / f"{name}.cpp"])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -56,11 +56,12 @@ import torch
 from ..config import DISConfig
 from ..models import refine as rf
 from ..models.densify import merge_backward, result_absw, splat_forward_scatter
-from ..models.dis import _as_tensor, _grid_tensors, _level_flow, _search, _stage_templates
+from ..models.dis import _grid_tensors, _level_flow, _search, _stage_templates
 from ..models.grid import level_geometry
 from ..models.inverse_search import build_templates
 from ..ops import kernels
 from ..ops import pyramid as pyr
+from ..ops.transfer import to_device
 from .collectives import _all_gather, _axis_info, _axis_size, _exchange, _psum
 
 
@@ -289,7 +290,7 @@ def _mesh_device(mesh) -> torch.device:
 def _padded_pair(img1, img2, cfg: DISConfig, device):
     """Both images as float32 (H, W, C) tensors on `device`; raises unless
     padded to divisibility by 2^sc_f."""
-    a, b = _as_tensor(img1, device), _as_tensor(img2, device)
+    a, b = to_device(img1, device), to_device(img2, device)
     if a.ndim == 2:
         a, b = a[..., None], b[..., None]
     h, w = a.shape[:2]

@@ -17,15 +17,20 @@ process_video_batched also shards each chunk over a data mesh (mesh=).
 On the card process_video runs each pair through dis_raw's executable,
 and process_video_batched each chunk through `_video_chunk` and its warm
 start through `_warm_single`, executables as in the JAX package
-(of_dis_tpu/parallel/video.py:46, 121; ops/graphs.py).
+(of_dis_tpu/parallel/video.py:46, 121; ops/graphs.py).  Frames go up and
+results come back through pinned memory, queued in stream order
+(ops/transfer.py): process_video waits for each pair's result, as the JAX
+package's np.asarray(dis_raw(...)) does; process_video_batched waits only
+when it flushes a chunk, for that chunk's result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from pathlib import Path
-from typing import Callable, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +40,22 @@ from ..config import DISConfig
 from ..models.dis import _dis_padded, _prepare, _upscale_crop, dis_raw, resolve_device
 from ..ops import graphs
 from ..ops.pyramid import pad_to_divisible, resize_bilinear
+from ..ops.transfer import stack_to_device, to_device, to_host
 from .batch import _data_slice
 from .collectives import _all_gather, _broadcast_object
+
+
+# Host seconds of process_video_batched by part, summed over its runs
+# (reset_host_seconds() zeroes them): loading a chunk's frames and staging
+# them into pinned memory ("load_stage"), queueing its device work and
+# copies ("enqueue"), waiting at a flush for the oldest chunk's result
+# ("wait"), and writing that chunk's files and progress.json ("write").
+host_seconds: Dict[str, float] = dict.fromkeys(("load_stage", "enqueue", "wait", "write"), 0.0)
+
+
+def reset_host_seconds() -> None:
+    for k in host_seconds:
+        host_seconds[k] = 0.0
 
 
 def _warm_start_from(flow: torch.Tensor, cfg: DISConfig) -> torch.Tensor:
@@ -137,9 +156,9 @@ def process_video(
             continue
         init = None
         if warm_start and prev_flow is not None:
-            init = _warm_start_from(torch.as_tensor(prev_flow, device=dev), cfg)
-        flow = dis_raw(load(frames[i]), load(frames[i + 1]), cfg, init_flow=init,
-                       device=dev).cpu().numpy()
+            init = _warm_start_from(to_device(prev_flow, dev), cfg)
+        flow = to_host(dis_raw(load(frames[i]), load(frames[i + 1]), cfg, init_flow=init,
+                               device=dev)).numpy()
         _write_pair(out_path, cfg, flow)
         prev_flow = flow
         _checkpoint(ckpt, i)
@@ -160,9 +179,13 @@ def process_video_batched(
 ) -> Iterator[Tuple[int, Path]]:
     """Batched, checkpointed video: `batch_size` consecutive pairs per
     batched call (every kernel launch takes the whole chunk), with up to
-    `queue_depth` chunks queued on the card's stream before the host waits
-    for the oldest one's result (its copy to the host is the only sync) and
-    writes its files.
+    `queue_depth` chunks queued on the card before the host waits for the
+    oldest one's result and writes its files.  A chunk's frames are loaded
+    one at a time straight into pinned memory and their upload queued; its
+    result's copy to the host is queued right behind the chunk
+    (ops/transfer.py).  So the host waits only when it flushes a chunk,
+    once per chunk, for that chunk's copy alone, as the JAX package's
+    np.asarray does; `host_seconds` adds up where the host's time went.
 
     The warm start chains across chunks: every pair of chunk j+1 starts from
     chunk j's last pair's flow, kept on the card.  This deviates from
@@ -216,26 +239,32 @@ def process_video_batched(
         start_chunk, prev = _broadcast_object((start_chunk, prev), mesh, "data")
     for i in range(min(start_chunk * B, n_pairs)):
         yield i, pair_path(i)
-    init = None if prev is None else _warm_single(torch.as_tensor(prev, device=dev), cfg)
+    init = None if prev is None else _warm_single(to_device(prev, dev), cfg)
 
-    pending = []  # [(chunk start, real pairs, flows on the card)]
+    pending = []  # [(chunk start, real pairs, the flows' copy to the host)]
 
     def flush_one():
-        c0, n_real, flows = pending.pop(0)
-        flows = flows.cpu().numpy()  # waits for this chunk only
+        c0, n_real, copy = pending.pop(0)
+        t0 = time.perf_counter()
+        flows = copy.numpy()  # the host's one wait per chunk: for this chunk's copy only
+        t1 = time.perf_counter()
         if writes:
             for k in range(n_real):
                 _write_pair(pair_path(c0 + k), cfg, flows[k])
             _checkpoint(ckpt, c0 + n_real - 1)
+        host_seconds["wait"] += t1 - t0
+        host_seconds["write"] += time.perf_counter() - t1
         return [(c0 + k, pair_path(c0 + k)) for k in range(n_real)]
 
     for j in range(start_chunk, (n_pairs + B - 1) // B):
         c0, c1 = j * B, min((j + 1) * B, n_pairs)
         idxs = list(range(c0, c1)) + [c1 - 1] * (B - (c1 - c0))  # pad by repeat
         idxs = idxs[share]  # this rank's pairs of the chunk (all without a mesh)
-        a, b, _ = _prepare(np.stack([np.asarray(load(frames[i]), np.float32) for i in idxs]),
-                           np.stack([np.asarray(load(frames[i + 1]), np.float32) for i in idxs]),
-                           cfg, dev, 1)
+        t0 = time.perf_counter()
+        a = stack_to_device((load(frames[i]) for i in idxs), len(idxs), dev)
+        b = stack_to_device((load(frames[i + 1]) for i in idxs), len(idxs), dev)
+        t1 = time.perf_counter()
+        a, b, _ = _prepare(a, b, cfg, dev, 1)
         # the chunk, its warm start shared by all its pairs (None: cold start)
         scf = 1 << cfg.sc_f
         flows = _video_chunk(pad_to_divisible(a, scf), pad_to_divisible(b, scf),
@@ -244,7 +273,9 @@ def process_video_batched(
             flows = _all_gather(flows, mesh, "data", 0)
         if warm_start:
             init = _warm_single(flows[c1 - c0 - 1], cfg)  # chained on the card
-        pending.append((c0, c1 - c0, flows))
+        pending.append((c0, c1 - c0, to_host(flows)))
+        host_seconds["load_stage"] += t1 - t0
+        host_seconds["enqueue"] += time.perf_counter() - t1
         if len(pending) > queue_depth:
             yield from flush_one()
     while pending:

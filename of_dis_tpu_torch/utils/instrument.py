@@ -26,7 +26,6 @@ import torch
 
 from ..config import DISConfig
 from ..models.dis import (
-    _as_tensor,
     _grid_tensors,
     _prepare,
     _pyramids,
@@ -40,6 +39,7 @@ from ..models.dis import (
 from ..models.grid import level_geometry
 from ..ops import graphs
 from ..ops import pyramid as pyr
+from ..ops.transfer import to_device
 
 _pyramids_jit = graphs.executable(_pyramids)
 _templates_jit = graphs.executable(_stage_templates)
@@ -71,7 +71,7 @@ def dis_flow_timed(
     the total at verbosity > 0 (default: cfg.verbosity)."""
     v = cfg.verbosity if verbosity is None else verbosity
     img1, img2, dev = _prepare(img1, img2, cfg, device, 0)
-    init = None if init_flow is None else _as_tensor(init_flow, dev)
+    init = None if init_flow is None else to_device(init_flow, dev)
 
     def clock(t0=None):
         """The host clock after the device's queued work has finished; with

@@ -67,7 +67,18 @@ every kernel call of each rank equal to its plain version and op4's
 level-0 tile calls equal to the untiled kernel; it prints launches per
 rank, pair ms, exchanges and host-staged bytes per pair and peak memory per
 rank.  The ranks share one card, so those times say nothing about sharding
-across cards.  The line
+across cards.  Then the spatial nccl phase runs the same paths in a 4-rank
+NCCL world (on cuda:0, each rank named a host of its own by NCCL_HOSTID,
+NCCL_SOCKET_IFNAME=lo and NCCL_IB_DISABLE=1, so that NCCL takes them for
+four nodes and moves the exchanges over its socket transport; one rank per
+card on a host with four): each path under eager() (every kernel call
+against its plain version; on the rolled pair with host syncs raising),
+then through its sharded executable (one CUDA graph per rank and static
+key, the NCCL collectives captured inside): the first call, a replay and
+a replay on the rolled pair, each bit-equal to the eager run, counting its
+launches and exchanges, nothing staged through the host; it prints the
+mode that ran, capture ms and pool MiB, host-dispatched ops per pair in
+both modes and the max difference from the gloo world's flow.  The line
 before the last lists every kernel with its times and bound; the last line
 is {"ok": true, "device": {...}}.  Any failure raises and the script exits
 non-zero without that line; so does a host without CUDA.
@@ -1348,16 +1359,41 @@ def spatial_rank(rank: int, store: str, out: str) -> None:
     dist.destroy_process_group()
 
 
-def spatial_phase(torch, dev, inputs, flows, golden, smi) -> dict:
+def run_world(target, args, what: str) -> float:
+    """SPATIAL_RANKS spawned processes target(*args(rank)), joined within
+    SPATIAL_TIMEOUT_S (then killed); raises unless each exits with 0.
+    Returns the seconds they took."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args(r)) for r in range(SPATIAL_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + SPATIAL_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+    finally:
+        alive = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    require(not alive, f"{what} ranks {alive} did not finish in {SPATIAL_TIMEOUT_S} s")
+    codes = [p.exitcode for p in procs]
+    require(codes == [0] * SPATIAL_RANKS, f"{what} ranks exited with {codes}")
+    return time.perf_counter() - t0
+
+
+def spatial_phase(torch, dev, inputs, flows, golden, smi) -> tuple:
     """Spatial sharding on one card: SPATIAL's paths in one 4-rank gloo
     world on cuda:0 (spatial_rank), each held to its golden, to the
     single-device run on the card, and to its plain kernels.  The ranks
     share the card, so no time here says anything about sharding across
     cards.  Peak memory (per rank, and of the single-device run) is what a
     path's run allocates above what the process already held.  Returns the
-    tile form's row of the kernels line."""
-    import multiprocessing
-
+    tile form's row of the kernels line and the single-device flows."""
     from of_dis_tpu_torch import batched_flow
     from of_dis_tpu_torch.ops import kernels
 
@@ -1389,26 +1425,7 @@ def spatial_phase(torch, dev, inputs, flows, golden, smi) -> dict:
         torch.cuda.synchronize()
         single_peak[name] = torch.cuda.max_memory_allocated(dev) - held
 
-    t0 = time.perf_counter()
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=spatial_rank, args=(r, str(store), str(out)))
-             for r in range(SPATIAL_RANKS)]
-    for p in procs:
-        p.start()
-    deadline = time.perf_counter() + SPATIAL_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(max(1.0, deadline - time.perf_counter()))
-    finally:
-        alive = [p.pid for p in procs if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    require(not alive, f"spatial ranks {alive} did not finish in {SPATIAL_TIMEOUT_S} s")
-    codes = [p.exitcode for p in procs]
-    require(codes == [0] * SPATIAL_RANKS, f"spatial ranks exited with {codes}")
-    world_s = time.perf_counter() - t0
+    world_s = run_world(spatial_rank, lambda r: (r, str(store), str(out)), "spatial")
     ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(SPATIAL_RANKS)]
     got = np.load(out / "flows.npz")
 
@@ -1467,7 +1484,275 @@ def spatial_phase(torch, dev, inputs, flows, golden, smi) -> dict:
             tile_row = dict(tf, launches=ranks[0][name]["launches"]["gn_search"], per=name)
     emit("spatial world", ranks=SPATIAL_RANKS, backend="gloo", device="cuda:0",
          seconds=world_s, compute_mode=mode)
-    return tile_row
+    return tile_row, single
+
+
+# NCCL ranks sharing one card: each rank takes itself for a host of its own
+# (NCCL refuses two ranks of one host on one device), and NCCL moves the
+# exchanges over its socket transport on loopback, from CUDA buffers.
+NCCL_SHARED_ENV = dict(NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1", LOCAL_RANK="0")
+
+
+def _no_host_sync(torch, fn):
+    """fn() with any operation that syncs the host with the card raising
+    (torch.cuda.set_sync_debug_mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def spatial_nccl_rank(rank: int, store: str, out: str, shared: bool) -> None:
+    """One rank of the spatial nccl phase's world: every SPATIAL path
+    through its entry point, (1) under eager() with every kernel call
+    recorded (then each against its plain version), (2) under eager() on
+    the pair rolled by ROLL_PX px, profiled and with host syncs raising,
+    (3) through its executable: the first call (warm-up, capture, replay),
+    a replay, and a replay on the rolled pair, profiled; counters reset
+    just before each run and read just after; results to <out>/rank<r>.json
+    (rank 0 also writes the eager flows to <out>/flows.npz).  shared: all
+    ranks on cuda:0, each named a host of its own (NCCL_SHARED_ENV and
+    NCCL_HOSTID); else rank r on cuda:r."""
+    import hashlib
+    import os
+
+    if shared:
+        os.environ.update(NCCL_HOSTID=f"ofdis-rank{rank}", **NCCL_SHARED_ENV)
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from of_dis_tpu_torch import batched_flow
+    from of_dis_tpu_torch.ops import build, graphs, kernels
+    from of_dis_tpu_torch.ops import pyramid as pyr
+    from of_dis_tpu_torch.parallel import collectives, spatial
+    from of_dis_tpu_torch.parallel.batch import data_mesh
+    from of_dis_tpu_torch.parallel.multihost import (
+        destroy_distributed,
+        flow_2d,
+        init_distributed,
+        mesh_2d,
+        mesh_3d,
+    )
+
+    card = 0 if shared else rank
+    torch.cuda.set_device(card)
+    dev = torch.device("cuda", card)
+    torch.zeros(1, device=dev)  # the CUDA context, before the meshes
+    build.build_all()  # the parent built them: loads only
+    init_distributed("nccl", f"file://{store}", SPATIAL_RANKS, rank, timeout_s=300)
+    meshes = dict(strips=mesh_2d(1, SPATIAL_RANKS), tiles=mesh_3d(1, 2, 2),
+                  flow_2d=mesh_2d(2, 2), batched=data_mesh(SPATIAL_RANKS))
+    report, flows = {}, {}
+
+    for name, (base, how, nb, _) in SPATIAL.items():
+        img1, img2, cfg = path_inputs(base)
+        h0, w0 = img1.shape[:2]
+        scf = 1 << cfg.sc_f
+        mesh = meshes[how]
+
+        def pair_at(roll):
+            """The path's inputs, rolled horizontally by roll px."""
+            if nb > 1:
+                return tuple(np.roll(x, roll, axis=2) for x in rolled_batch(img1, img2, nb))
+            return tuple(pyr.pad_to_divisible(torch.as_tensor(
+                np.roll(x, roll, axis=1)[..., None] if x.ndim == 2 else np.roll(x, roll, axis=1),
+                device=dev), scf) for x in (img1, img2))
+
+        def run(a, b):
+            """The path through its entry point: what it returns on the card."""
+            if how == "strips":
+                return spatial.spatial_flow(a, b, cfg, mesh), {}
+            if how == "tiles":
+                return spatial.spatial_tiled_fn(cfg, mesh, *a.shape[:2])[0](a, b)
+            if how == "flow_2d":
+                return flow_2d(a, b, cfg, mesh), {}
+            return batched_flow(a, b, cfg, mesh=mesh), {}
+
+        def host(got):
+            """(flow at full resolution, clamp counts) on the host."""
+            flow, cc = got
+            if how in ("strips", "tiles"):
+                flow = _full_res(flow, cfg, h0, w0)
+            return flow.cpu().numpy(), {k: int(v) for k, v in cc.items()}
+
+        def counted(fn):
+            """(fn(), ms per pair barrier to barrier, the counters it moved)."""
+            kernels.reset_launches()
+            collectives.reset_exchanges()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            ms = (time.perf_counter() - t0) * 1e3 / nb
+            return got, ms, dict(launches=dict(kernels.launches), **collectives.exchanges,
+                                 modes=dict(collectives.modes))
+
+        a, b = pair_at(0)
+        ar, br = pair_at(ROLL_PX)
+        box = {}
+        calls = record_calls(kernels, lambda: box.__setitem__("eager", counted(
+            lambda: run(a, b))))
+        res, eager_ms, eager_counts = box.pop("eager")
+        eager = host(res)
+        line = dict(eager=eager_counts, **_calls_vs_plain(torch, kernels, calls))
+        del calls, res  # the recorded arguments
+        with graphs.eager(), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+            res, eager_rolled_ms, rolled_counts = counted(
+                lambda: _no_host_sync(torch, lambda: run(ar, br)))
+        eager_rolled = host(res)
+        line["eager_profile"] = profile_summary(prof, eager_rolled_ms, nb, DeviceType)
+
+        held = {ex.key for ex in graphs.cache.sharded_entries() + graphs.cache.entries(dev)}
+        res, first_ms, line["first_call"] = counted(lambda: run(a, b))
+        first = host(res)
+        new = [ex for ex in graphs.cache.sharded_entries() + graphs.cache.entries(dev)
+               if ex.key not in held]
+        res, graph_ms, line["replay"] = counted(lambda: run(a, b))
+        replay = host(res)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res, graph_rolled_ms, _ = counted(lambda: run(ar, br))
+        graph_rolled = host(res)
+        line["graph_profile"] = profile_summary(prof, graph_rolled_ms, nb, DeviceType)
+        line.update(
+            executables=[dict(name=ex.key[0].__qualname__, capture_ms=ex.capture_ms,
+                              pool_mib=ex.pool_bytes / 2**20, sharded=ex.exchange_counter
+                              is not None, exchanges_per_replay=ex.exchanges) for ex in new],
+            pair_ms=dict(eager=eager_ms, eager_rolled=eager_rolled_ms, first_call=first_ms,
+                         graph=graph_ms, graph_rolled=graph_rolled_ms),
+            clamp_counts=eager[1],
+            graph_equals_eager=dict(
+                first=bool(np.array_equal(first[0], eager[0])) and first[1] == eager[1],
+                replay=bool(np.array_equal(replay[0], eager[0])) and replay[1] == eager[1],
+                rolled=bool(np.array_equal(graph_rolled[0], eager_rolled[0]))
+                and graph_rolled[1] == eager_rolled[1]),
+            rolled_eager_counts_equal=rolled_counts["launches"] == eager_counts["launches"],
+            flow_sha256=hashlib.sha256(eager[0].tobytes()).hexdigest())
+        flows[name] = eager[0]
+        report[name] = line
+
+    Path(out, f"rank{rank}.json").write_text(json.dumps(report))
+    if rank == 0:
+        np.savez(Path(out, "flows.npz"), **flows)
+    dist.barrier()
+    destroy_distributed()
+
+
+def spatial_nccl_phase(torch, dev, inputs, single, golden, smi) -> None:
+    """The spatial paths in an NCCL world of SPATIAL_RANKS ranks
+    (spatial_nccl_rank): on cuda:0, each rank named a host of its own
+    (NCCL over its socket transport on loopback), or one rank per card on a
+    host with that many.  Each path's CUDA graph replays must equal the
+    same world's eager() run bit for bit and count its launches and
+    exchanges (none staged through the host); the path is held to its
+    golden and the single-device run under the gloo phase's bounds, and
+    its max difference from the gloo world's flow is printed.  Ranks that
+    share a card take turns on it, so no time here says anything about
+    speed across cards."""
+    shared = torch.cuda.device_count() < SPATIAL_RANKS
+    out = OUT_DIR / "spatial_nccl"
+    out.mkdir(parents=True, exist_ok=True)
+    store = out / "store"
+    for f in [store, *out.glob("rank*.json"), out / "flows.npz"]:
+        f.unlink(missing_ok=True)
+    world_s = run_world(spatial_nccl_rank, lambda r: (r, str(store), str(out), shared),
+                        "spatial nccl")
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(SPATIAL_RANKS)]
+    got = np.load(out / "flows.npz")
+    gloo = np.load(OUT_DIR / "spatial" / "flows.npz")
+    layout = (f"{SPATIAL_RANKS} ranks on cuda:0, one NCCL_HOSTID each" if shared
+              else f"one rank per card, cuda:0-{SPATIAL_RANKS - 1}")
+    for name, (base, how, nb, want) in SPATIAL.items():
+        img1, img2, cfg = inputs[base]
+        want = {k: want.get(k, 0) for k in KERNELS}
+        flow, ref = got[name], single[name]
+        r0 = ranks[0][name]
+        sharded = how not in ("batched",)
+        line = dict(
+            config=f"{name} {img1.shape[1]}x{img1.shape[0]}", mesh=how, pairs=nb,
+            backend="nccl", layout=layout, ranks_share_one_card=shared,
+            mode_per_rank=[("graph" if r[name]["replay"]["modes"]["graph"] else
+                            "graph (single-device executable, eager all_gather)")
+                           for r in ranks],
+            eager_mode_per_rank=[r[name]["eager"]["modes"] for r in ranks],
+            executables_per_rank=[r[name]["executables"] for r in ranks],
+            pair_ms_per_rank=[r[name]["pair_ms"] for r in ranks],
+            pair_ms_note="ranks take turns on one card: no statement about speed"
+            if shared else "one rank per card",
+            host_dispatched_ops_per_pair_per_rank=[
+                dict(graph=r[name]["graph_profile"]["host_dispatched_ops_per_pair"],
+                     eager=r[name]["eager_profile"]["host_dispatched_ops_per_pair"])
+                for r in ranks],
+            host_dispatch_calls_per_pair_rank0=dict(
+                graph=r0["graph_profile"]["host_dispatch_calls_per_pair"],
+                eager=r0["eager_profile"]["host_dispatch_calls_per_pair"]),
+            device_ops_per_pair_rank0=dict(graph=r0["graph_profile"]["device_ops_per_pair"],
+                                           eager=r0["eager_profile"]["device_ops_per_pair"]),
+            launches_per_rank=[r[name]["eager"]["launches"] for r in ranks],
+            launches_per_replay_per_rank=[r[name]["replay"]["launches"] for r in ranks],
+            exchanges_per_pair=dict(eager=r0["eager"]["exchanges"] / nb,
+                                    replay=r0["replay"]["exchanges"] / nb),
+            staged_bytes=dict(eager=[r[name]["eager"]["staged_bytes"] for r in ranks],
+                              replay=[r[name]["replay"]["staged_bytes"] for r in ranks]),
+            graph_equals_eager=[r[name]["graph_equals_eager"] for r in ranks],
+            clamp_counts=r0["clamp_counts"],
+            kernel_calls_checked=[r[name]["kernel_calls_checked"] for r in ranks],
+            kernel_calls_differ=[r[name]["kernel_calls_differ"] for r in ranks],
+            same_on_every_rank=len({r[name]["flow_sha256"] for r in ranks}) == 1,
+            finite_and_shaped=bool(np.isfinite(flow).all() and flow.shape == ref.shape),
+            max_abs_diff_vs_gloo=float(np.abs(flow - gloo[name]).max()),
+            max_abs_diff_vs_single_device=float(np.abs(flow - ref).max()),
+            epe_vs_single_device=epe(flow, ref),
+            nvidia_smi=smi)
+        case = PATHS[base][4]
+        if case is not None:
+            line["epe_vs_golden"] = epe(flow[0] if nb > 1 else flow, golden(case))
+        if how == "batched":
+            line["pairs_equal_to_own_run"] = int(sum(np.array_equal(flow[i], ref[i])
+                                                     for i in range(nb)))
+        emit("spatial nccl", **line)
+        for r, rk in enumerate(ranks):
+            rl = rk[name]
+            require(rl["eager"]["launches"] == want and rl["replay"]["launches"] == want,
+                    f"{name} rank {r}: launches {rl['eager']['launches']} eager, "
+                    f"{rl['replay']['launches']} per replay, expected {want}")
+            require(rl["replay"]["exchanges"] == rl["eager"]["exchanges"] > 0,
+                    f"{name} rank {r}: exchanges per replay {rl['replay']['exchanges']}, "
+                    f"eager {rl['eager']['exchanges']}")
+            require(rl["eager"]["staged_bytes"] == rl["replay"]["staged_bytes"] == 0,
+                    f"{name} rank {r}: bytes staged through the host under NCCL")
+            require(all(rl["graph_equals_eager"].values()) and rl["rolled_eager_counts_equal"],
+                    f"{name} rank {r}: graph replays differ from the eager run: {rl}")
+            require(not sharded or (rl["replay"]["modes"] == {"graph": 1, "eager": 0}
+                                    and rl["eager"]["modes"] == {"graph": 0, "eager": 1}),
+                    f"{name} rank {r}: modes eager {rl['eager']['modes']}, "
+                    f"replay {rl['replay']['modes']}")
+            require(not sharded or any(ex["sharded"] for ex in rl["executables"]),
+                    f"{name} rank {r}: no sharded executable captured")
+            ops = {m: rl[f"{m}_profile"]["host_dispatched_ops_per_pair"]
+                   for m in ("graph", "eager")}
+            require(not sharded or (all(isinstance(v, float) for v in ops.values())
+                                    and 100 * ops["graph"] < ops["eager"]),
+                    f"{name} rank {r}: host-dispatched ops per pair {ops}: the graph "
+                    "should cost one launch and copies per call, not a call per exchange")
+        require(line["same_on_every_rank"], f"{name}: ranks returned different flows")
+        require(line["finite_and_shaped"], f"{name}: non-finite or misshapen output")
+        require(not any(line["kernel_calls_differ"]),
+                f"{name}: kernel calls differ from their plain versions: {line}")
+        if "epe_vs_golden" in line:
+            require(line["epe_vs_golden"] < EPE_GOLDEN, f"{name}: {line}")
+        if not any(line["clamp_counts"].values()):
+            require(line["epe_vs_single_device"] < EPE_SHARDED, f"{name}: {line}")
+        if how == "batched":
+            require(line["pairs_equal_to_own_run"] == nb, f"{name}: {line}")
+    emit("spatial nccl world", ranks=SPATIAL_RANKS, backend="nccl", layout=layout,
+         environment=dict(NCCL_HOSTID="ofdis-rank<r>", **NCCL_SHARED_ENV) if shared else {},
+         seconds=world_s)
 
 
 def main() -> int:
@@ -2065,7 +2350,10 @@ def main() -> int:
         require(line["table_ok"], f"cli {out_name}: {line}")
 
     # ---- spatial sharding: a 4-rank world on this card ----
-    tile_row = spatial_phase(torch, dev, inputs, flows, golden, smi)
+    tile_row, single = spatial_phase(torch, dev, inputs, flows, golden, smi)
+
+    # ---- spatial sharding compiled: the same paths in an NCCL world ----
+    spatial_nccl_phase(torch, dev, inputs, single, golden, smi)
 
     # ---- kernels ----
     kernel_rows = [

@@ -55,6 +55,31 @@ Here each is a function wrapped by `executable`:
     executable as written on the card too, for holding one mode against the
     other.
 
+Sharded executables (`call_sharded`; parallel/collectives.py::sharded
+wraps the passes of parallel/spatial.py and multihost.py, the counterpart
+of the JAX package's `jax.jit(shard_map(...))` cache,
+of_dis_tpu/parallel/multihost.py:82-92) capture a whole rank's pass with
+its NCCL collectives inside:
+
+  - They live in a table per mesh, keyed by the identity of the mesh's
+    process groups (not by the mesh's layout, which a mesh re-made over
+    new groups shares), at most MAX_SHARDED per table, evicted only by
+    sharded calls on that mesh.  Warm-up and capture issue collectives, so
+    every rank of the mesh must capture the same key at the same call:
+    every rank makes the same sharded calls in the same order, and so
+    captures, replays and evicts the same keys.  `drop_meshes` releases
+    a table's executables (multihost.destroy_distributed does before the
+    groups go; a table whose groups are gone is dropped at the next
+    sharded call).
+  - The warm-up creates the communicators (NCCL makes some at the first
+    collective of a group or a pair of ranks), so the capture makes none.
+  - The collectives a replay issues are counted as its kernel launches
+    are: recorded at the capture (parallel/collectives.py `exchanges`)
+    and added at every replay.
+  - The capture runs in CUDA's thread-local capture mode (so does any
+    capture in a process with a process group): the group's watchdog
+    thread queries events of earlier collectives while a capture runs.
+
 Calls take turns under a lock, and each enqueues its input copies, its
 replay and its output copy on the caller's current stream.
 """
@@ -68,15 +93,18 @@ import time
 import warnings
 from collections import OrderedDict
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from . import kernels
 
 # Executables kept per device (an -v 2 run of op4 keeps 21 stage executables).
 MAX_EXECUTABLES = 32
+# Sharded executables kept per mesh (each pool holds a whole pass of a rank).
+MAX_SHARDED = 8
 
 _eager = contextvars.ContextVar("of_dis_tpu_torch_eager", default=False)
 _held = contextvars.ContextVar("of_dis_tpu_torch_held", default=None)
@@ -90,6 +118,11 @@ def eager():
         yield
     finally:
         _eager.reset(token)
+
+
+def is_eager() -> bool:
+    """Whether the caller runs under eager()."""
+    return _eager.get()
 
 
 def hold(*tensors: torch.Tensor) -> None:
@@ -175,7 +208,9 @@ def describe(key) -> str:
 class Executable:
     """One captured call: its graph (the backend's handle), the static
     tensors it reads and writes, the launches one replay makes, the
-    tensors it holds from outside its pool, and what its capture cost."""
+    tensors it holds from outside its pool, and what its capture cost.
+    A sharded one also names the counter of its collectives and the
+    counts one replay adds to it."""
     key: tuple
     handle: Any
     inputs: List[torch.Tensor]
@@ -186,6 +221,15 @@ class Executable:
     capture_ms: float
     pool_bytes: int
     replays: int = 0
+    exchanges: Dict[str, int] = field(default_factory=dict)
+    exchange_counter: Optional[Dict[str, int]] = None
+
+
+class _MeshTable(NamedTuple):
+    """A mesh's sharded executables, oldest use first, and the process
+    groups that key it (held, so that their identities stay unique)."""
+    groups: tuple
+    entries: "OrderedDict[tuple, Executable]"
 
 
 class CudaGraphs:
@@ -200,13 +244,20 @@ class CudaGraphs:
             run()
         cur.wait_stream(side)
 
-    def capture(self, run: Callable[[], Any], device: torch.device):
+    def capture(self, run: Callable[[], Any], device: torch.device, collective: bool = False):
+        """run() captured in a new graph: (graph, run's outputs).  A
+        collective capture, and any capture in a process with a process
+        group, lets other threads (the group's watchdog) query events
+        meanwhile (thread-local capture mode)."""
         graph = torch.cuda.CUDAGraph()
+        watched = collective or (dist.is_available() and dist.is_initialized())
+        mode = "thread_local" if watched else "global"
         with torch.cuda.device(device), warnings.catch_warnings():
             # a function with no device work (a stage that forwards its
             # inputs) captures an empty graph, which replays as a no-op
             warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
-            with torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
+                                  capture_error_mode=mode):
                 out = run()
         return graph, out
 
@@ -226,13 +277,17 @@ class CudaGraphs:
 
 
 class ExecutableCache:
-    """Executables by key, at most max_per_device per device, captured and
-    replayed by `backend` (CudaGraphs on the card)."""
+    """Executables by key, at most max_per_device per device, and sharded
+    ones at most max_per_mesh per mesh, captured and replayed by `backend`
+    (CudaGraphs on the card)."""
 
-    def __init__(self, backend, max_per_device: int = MAX_EXECUTABLES):
+    def __init__(self, backend, max_per_device: int = MAX_EXECUTABLES,
+                 max_per_mesh: int = MAX_SHARDED):
         self.backend = backend
         self.max_per_device = max_per_device
+        self.max_per_mesh = max_per_mesh
         self._by_device: Dict[torch.device, "OrderedDict[tuple, Executable]"] = {}
+        self._by_mesh: Dict[tuple, _MeshTable] = {}
         self._lock = threading.Lock()
 
     def entries(self, device: Optional[torch.device] = None) -> List[Executable]:
@@ -246,17 +301,34 @@ class ExecutableCache:
                       else [self._by_device.get(device, {})])
             return [ex for t in tables for ex in t.values()]
 
+    def sharded_entries(self, mesh_key: Optional[tuple] = None) -> List[Executable]:
+        """The sharded executables held (in the table of `mesh_key`, or in
+        every table), oldest use first."""
+        with self._lock:
+            tables = (self._by_mesh.values() if mesh_key is None
+                      else [t for k, t in self._by_mesh.items() if k == mesh_key])
+            return [ex for t in tables for ex in t.entries.values()]
+
     def clear(self) -> None:
         """Release every executable."""
+        self.drop_meshes()
         with self._lock:
             for table in self._by_device.values():
                 for ex in table.values():
                     self.backend.release(ex.handle)
             self._by_device.clear()
 
-    def call(self, fn: Callable, args: tuple, kwargs: dict):
-        """fn(*args, **kwargs) through its executable: captured at the first
-        call for its key, replayed at every later one."""
+    def drop_meshes(self, which: Optional[Callable[[tuple], bool]] = None) -> None:
+        """Release the sharded executables of the meshes whose groups
+        `which(groups)` names (of every mesh when which is None)."""
+        with self._lock:
+            for k in [k for k, t in self._by_mesh.items() if which is None or which(t.groups)]:
+                for ex in self._by_mesh.pop(k).entries.values():
+                    self.backend.release(ex.handle)
+
+    @staticmethod
+    def _key(fn: Callable, args: tuple, kwargs: dict):
+        """(leaves, spec, device, key) of a call."""
         leaves: List[torch.Tensor] = []
         spec = _flatten((tuple(args), dict(kwargs)), leaves)
         if not leaves:
@@ -270,29 +342,58 @@ class ExecutableCache:
             hash(key)
         except TypeError as e:
             raise TypeError(f"{fn.__qualname__}: a static argument is not hashable ({e})") from e
+        return leaves, spec, device, key
+
+    def call(self, fn: Callable, args: tuple, kwargs: dict):
+        """fn(*args, **kwargs) through its executable: captured at the first
+        call for its key, replayed at every later one."""
+        leaves, spec, device, key = self._key(fn, args, kwargs)
         with self._lock:
             table = self._by_device.setdefault(device, OrderedDict())
-            ex = table.get(key)
-            if ex is None:
-                while len(table) >= self.max_per_device:
-                    _, old = table.popitem(last=False)
-                    self.backend.release(old.handle)
-                ex = self._compile(fn, key, spec, leaves, device)
-                table[key] = ex
-            table.move_to_end(key)
-            # (again after a capture: its warm-up may have written to them)
-            for static, t in zip(ex.inputs, leaves):
-                static.copy_(t)
-            self._replay(ex)
-            return _unflatten(ex.out_spec, iter([o.clone() for o in ex.outputs]))
+            return self._run(table, self.max_per_device, fn, key, spec, leaves, device)
+
+    def call_sharded(self, fn: Callable, args: tuple, kwargs: dict, mesh_key: tuple,
+                     groups: tuple, exchanges: Dict[str, int]):
+        """fn(*args, **kwargs), a sharded pass that every rank of a mesh
+        runs, through its executable in the mesh's table (mesh_key, the
+        identity of its process groups `groups`): captured with its
+        collectives at the first call for its key, replayed after.  The
+        collectives it issues are counted in `exchanges`: at its capture,
+        and added at each replay."""
+        leaves, spec, device, key = self._key(fn, args, kwargs)
+        with self._lock:
+            table = self._by_mesh.get(mesh_key)
+            if table is None:
+                table = self._by_mesh[mesh_key] = _MeshTable(tuple(groups), OrderedDict())
+            return self._run(table.entries, self.max_per_mesh, fn, key, spec, leaves, device,
+                             exchanges)
+
+    def _run(self, table, limit, fn, key, spec, leaves, device, exchanges=None):
+        """The call through `table`'s executable for key (captured first if
+        absent, the least recently used evicted at `limit`)."""
+        ex = table.get(key)
+        if ex is None:
+            while len(table) >= limit:
+                _, old = table.popitem(last=False)
+                self.backend.release(old.handle)
+            ex = self._compile(fn, key, spec, leaves, device, exchanges)
+            table[key] = ex
+        table.move_to_end(key)
+        # (again after a capture: its warm-up may have written to them)
+        for static, t in zip(ex.inputs, leaves):
+            static.copy_(t)
+        self._replay(ex)
+        return _unflatten(ex.out_spec, iter([o.clone() for o in ex.outputs]))
 
     def _replay(self, ex: Executable) -> None:
         self.backend.replay(ex.handle)
         ex.replays += 1
         for k, n in ex.launches.items():
             kernels.launches[k] += n
+        for k, n in ex.exchanges.items():
+            ex.exchange_counter[k] += n
 
-    def _compile(self, fn, key, spec, leaves, device) -> Executable:
+    def _compile(self, fn, key, spec, leaves, device, exchanges=None) -> Executable:
         inputs = [torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
                   for t in leaves]
         args, kwargs = _unflatten(spec, iter(inputs))
@@ -301,25 +402,35 @@ class ExecutableCache:
             return fn(*args, **kwargs)
 
         self.backend.warm_up(run, device)
-        before = dict(kernels.launches)
+        counters = [kernels.launches] + ([exchanges] if exchanges is not None else [])
+        before = [dict(c) for c in counters]
         held: List[torch.Tensor] = []
         t0 = time.perf_counter()
         token = _held.set(held)
         try:
-            handle, out = self.backend.capture(run, device)
+            if exchanges is None:
+                handle, out = self.backend.capture(run, device)
+            else:
+                handle, out = self.backend.capture(run, device, collective=True)
         except RuntimeError as e:
             raise RuntimeError(f"capturing {describe(key)} failed: {e}") from e
         finally:
             _held.reset(token)
-            made = {k: kernels.launches[k] - before[k] for k in before}
-            kernels.launches.update(before)  # a capture launches nothing
+            # a capture launches and exchanges nothing: what it recorded,
+            # each replay adds
+            made = [{k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
+                    for c, b in zip(counters, before)]
+            for c, b in zip(counters, before):
+                c.update(b)
         capture_ms = (time.perf_counter() - t0) * 1e3
         outputs: List[torch.Tensor] = []
         out_spec = _flatten(out, outputs)
         return Executable(key=key, handle=handle, inputs=inputs, outputs=outputs,
-                          out_spec=out_spec, launches={k: n for k, n in made.items() if n},
-                          held=held, capture_ms=capture_ms,
-                          pool_bytes=self.backend.pool_bytes(handle, device))
+                          out_spec=out_spec, launches=made[0], held=held,
+                          capture_ms=capture_ms,
+                          pool_bytes=self.backend.pool_bytes(handle, device),
+                          exchanges=made[1] if exchanges is not None else {},
+                          exchange_counter=exchanges)
 
 
 cache = ExecutableCache(CudaGraphs())

@@ -16,6 +16,16 @@ gloo moves host tensors; with NCCL, or on the CPU, nothing is staged.
 `exchanges` counts, per process, the collective calls and the bytes staged
 through the host.
 
+Execution by backend (`sharded`, the counterpart of the JAX package's
+`jax.jit(shard_map(...))`): under NCCL a sharded pass on CUDA tensors runs
+as one CUDA graph per rank and static key (ops/graphs.py::call_sharded),
+its NCCL collectives captured inside; `work.wait()` then only orders the
+current stream behind the collective, and nothing waits on the host.  With
+gloo on CUDA tensors (host staging: a graph cannot capture it), on the CPU
+and under graphs.eager() the pass runs eager, op by op.  `modes` counts
+the passes each way.  An NCCL world whose capture fails raises, naming the
+key; nothing falls back to eager.
+
 Timeouts: `device_mesh` gives each dimension's group the timeout that
 multihost.init_distributed was given (`group_timeout`), so that a
 mismatched collective raises instead of hanging; the groups that
@@ -25,25 +35,34 @@ otherwise.
 
 from __future__ import annotations
 
+import functools
 from datetime import timedelta
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+
+from ..ops import graphs
 
 # Per process: collective calls (a halo exchange, an all_reduce, an
 # all_gather or a broadcast is one each) and bytes copied through pinned
 # host memory.
 exchanges: Dict[str, int] = {"exchanges": 0, "staged_bytes": 0}
 
+# Per process: sharded passes by how they ran ("graph": through their
+# executable; "eager": op by op).
+modes: Dict[str, int] = {"graph": 0, "eager": 0}
+
 # The process group's timeout, set by multihost.init_distributed.
 group_timeout: Optional[timedelta] = None
 
 
 def reset_exchanges() -> None:
-    for k in exchanges:
-        exchanges[k] = 0
+    """Zero the exchange counters and the counts of modes."""
+    for counter in (exchanges, modes):
+        for k in counter:
+            counter[k] = 0
 
 
 def device_mesh(device_type: str, shape: Sequence[int], names: Sequence[str]):
@@ -163,7 +182,7 @@ def _all_gather(t: torch.Tensor, mesh, dim: Optional[str], axis: int) -> torch.T
 
 def _broadcast_object(obj, mesh, dim: str):
     """The (picklable) obj of the rank at index 0 of `dim`, on every rank
-    of it."""
+    of it.  Host pickling: never call it inside a sharded pass."""
     if _axis_size(mesh, dim) == 1:
         return obj
     group = mesh.get_group(dim)
@@ -171,3 +190,53 @@ def _broadcast_object(obj, mesh, dim: str):
     dist.broadcast_object_list(box, src=dist.get_process_group_ranks(group)[0], group=group)
     exchanges["exchanges"] += 1
     return box[0]
+
+
+# ---------------------------------------------------------------------------
+# Sharded passes as executables
+# ---------------------------------------------------------------------------
+
+def capturable(mesh) -> bool:
+    """Whether a sharded pass on `mesh` runs as a CUDA graph: on CUDA, with
+    every dimension's group on NCCL (device-side collectives).  gloo stages
+    through host memory, which a graph cannot capture."""
+    return mesh.device_type == "cuda" and all(
+        dist.get_backend(mesh.get_group(d)) == "nccl" for d in mesh.mesh_dim_names)
+
+
+def mesh_identity(mesh) -> Tuple[tuple, tuple]:
+    """(key, groups): what names a mesh's table of sharded executables, its
+    layout and the identity of each dimension's process group, and those
+    groups.  Two meshes of one layout over different groups (a mesh made
+    again, or one of a new world) key apart."""
+    groups = tuple(mesh.get_group(d) for d in mesh.mesh_dim_names)
+    key = (mesh.device_type, tuple(mesh.mesh.flatten().tolist()), tuple(mesh.mesh.shape),
+           tuple((d, g.group_name, id(g)) for d, g in zip(mesh.mesh_dim_names, groups)))
+    return key, groups
+
+
+def _gone(groups: tuple) -> bool:
+    """Whether any of the groups was destroyed."""
+    live = dist.distributed_c10d._world.pg_map if dist.is_initialized() else {}
+    return any(g not in live for g in groups)
+
+
+def sharded(fn: Callable) -> Callable:
+    """fn(mesh, *args, **kwargs), a whole sharded pass that every rank of
+    the mesh runs with the same static arguments and tensor shapes, as a
+    compiled executable: one CUDA graph per rank and static key under NCCL
+    (`capturable`), op by op otherwise (module docstring).  The wrapper's
+    `fn` is the function it runs."""
+
+    @functools.wraps(fn)
+    def call(mesh, *args, **kwargs):
+        if graphs.is_eager() or not capturable(mesh):
+            modes["eager"] += 1
+            return fn(mesh, *args, **kwargs)
+        modes["graph"] += 1
+        key, groups = mesh_identity(mesh)
+        graphs.cache.drop_meshes(_gone)  # tables of destroyed groups
+        return graphs.cache.call_sharded(fn, (mesh, *args), kwargs, key, groups, exchanges)
+
+    call.fn = fn
+    return call

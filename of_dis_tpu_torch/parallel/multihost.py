@@ -16,9 +16,18 @@ scaling story (SURVEY.md §5), on torch.distributed:
     over (data, ty, tx) tiles.
 
 Meshes are `torch.distributed.device_mesh.DeviceMesh`es with named
-dimensions, `data` outermost.  With NCCL each rank drives its own card;
-several ranks can share one card with a gloo group (the halo rows then
-travel through pinned host memory, parallel/collectives.py).
+dimensions, `data` outermost.  With NCCL each rank drives its own card,
+and each rank's whole pass of flow_2d / flow_2d_tiled (its share of the
+pairs and their gather over `data`, upscale and crop included) is one CUDA
+graph per static key, the collectives captured inside (the JAX package's
+`_cached_fn` of `jax.jit(shard_map(...))` programs,
+of_dis_tpu/parallel/multihost.py:82-92; collectives.sharded).  Several
+ranks can share one card with a gloo group (the halo rows then travel
+through pinned host memory, parallel/collectives.py, and the passes run
+eager), or with NCCL when each rank's environment names a host of its own
+(NCCL_HOSTID distinct per rank, NCCL_SOCKET_IFNAME=lo, NCCL_IB_DISABLE=1:
+NCCL then takes each rank for a node of its own and moves the exchanges
+over its socket transport); the package never sets these itself.
 """
 
 from __future__ import annotations
@@ -35,8 +44,9 @@ from ..models.dis import _prepare
 from ..ops import pyramid as pyr
 from . import collectives
 from .batch import _data_slice
-from .collectives import _all_gather, _axis_size, device_mesh
-from .spatial import _input_tiles, _mesh_device, _pair_2d, _pair_manual, tile_ownership
+from ..ops import graphs
+from .collectives import _all_gather, device_mesh, sharded
+from .spatial import _input_tiles, _mesh_device, _own_tensors, _pair_2d, _pair_manual
 
 
 def init_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,
@@ -68,6 +78,15 @@ def init_distributed(backend: Optional[str] = None, init_method: Optional[str] =
     collectives.group_timeout = timedelta(seconds=timeout_s)
     dist.init_process_group(backend=backend, init_method=init_method or "env://",
                             world_size=n, rank=r, timeout=collectives.group_timeout)
+
+
+def destroy_distributed() -> None:
+    """Release the sharded executables (their graphs hold the groups'
+    communicators), then destroy the process group and every group of
+    it.  No-op without one."""
+    graphs.cache.drop_meshes()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def mesh_2d(n_data: Optional[int] = None, n_tx: int = 1, device_type: str = "cuda"):
@@ -138,8 +157,22 @@ def flow_2d_tiled(imgs1, imgs2, cfg: DISConfig, mesh, max_disp: float = 8.0,
     at that level — nonzero means that pair's content moves faster than
     max_disp and the result deviates from the single-device pipeline."""
     p1, p2, hw, tl = _data_share(imgs1, imgs2, cfg, mesh)
+    flow, clamp_counts = _flow_2d_tiled_pass(mesh, p1, p2, cfg, hw, tl, float(max_disp),
+                                             return_diagnostics)
+    if not return_diagnostics:
+        return flow
+    return flow, clamp_counts
+
+
+@sharded
+def _flow_2d_tiled_pass(mesh, p1, p2, cfg: DISConfig, hw, tl, max_disp: float,
+                        diagnostics: bool):
+    """flow_2d_tiled's pass on one rank, as an executable (the JAX key
+    ("2d_tiled", cfg, mesh, max_disp, ...)): this data rank's padded pairs
+    (per, Hp, Wp, C) -> (the whole batch's flow, the per-pair clamp counts
+    gathered over data when diagnostics, else {})."""
     hp, wp = p1.shape[1:3]
-    own = tile_ownership(hp, wp, cfg, _axis_size(mesh, "ty"), _axis_size(mesh, "tx"), max_disp)
+    own = _own_tensors(hp, wp, cfg, mesh, "ty", "tx", max_disp, p1.device)
     flows, counts = [], []
     for i in range(p1.shape[0]):
         t1, t2 = _input_tiles(p1[i], p2[i], own, mesh, "ty", "tx")
@@ -147,14 +180,10 @@ def flow_2d_tiled(imgs1, imgs2, cfg: DISConfig, mesh, max_disp: float = 8.0,
         flows.append(f)
         counts.append(cc)
     flow = _finish(torch.stack(flows), cfg, (hp, wp), hw, tl, mesh)
-    if not return_diagnostics:
-        return flow
-    clamp_counts = {
-        k: _all_gather(torch.tensor([c[k] for c in counts], dtype=torch.int64,
-                                    device=flow.device), mesh, "data", 0)
-        for k in own
-    }
-    return flow, clamp_counts
+    if not diagnostics:
+        return flow, {}
+    return flow, {k: _all_gather(torch.cat([c[k] for c in counts]), mesh, "data", 0)
+                  for k in own}
 
 
 def flow_2d(imgs1, imgs2, cfg: DISConfig, mesh) -> torch.Tensor:
@@ -167,6 +196,14 @@ def flow_2d(imgs1, imgs2, cfg: DISConfig, mesh) -> torch.Tensor:
     dis_flow / batched_flow, the final 2^sc_l upscale and divisibility-
     padding crop are applied (run_dense.cpp:406-414)."""
     p1, p2, hw, tl = _data_share(imgs1, imgs2, cfg, mesh)
+    return _flow_2d_pass(mesh, p1, p2, cfg, hw, tl)
+
+
+@sharded
+def _flow_2d_pass(mesh, p1, p2, cfg: DISConfig, hw, tl):
+    """flow_2d's pass on one rank, as an executable (the JAX key ("2d",
+    cfg, mesh)): this data rank's padded pairs (per, Hp, Wp, C) -> the
+    whole batch's flow, upscaled, cropped and gathered over data."""
     flows = torch.stack([_pair_manual(p1[i], p2[i], cfg, mesh, "tx")
                          for i in range(p1.shape[0])])
     return _finish(flows, cfg, p1.shape[1:3], hw, tl, mesh)

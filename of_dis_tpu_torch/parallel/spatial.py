@@ -44,11 +44,20 @@ file's strip stencils (`_smoothness_sharded`, `_sub_laplacian_sharded`,
 `_get_derivatives_sharded`) are its 2-D ones here; the one difference is
 the stereo SOR's diagonal, summed as the 2-D form sums it.  Levels too
 narrow to shard run the single-device `_level_flow` on every rank.
+
+Execution: each entry point runs its whole pass through a sharded
+executable (parallel/collectives.py::sharded): one CUDA graph per rank and
+static key under NCCL, the collectives captured inside; op by op with
+gloo, on the CPU and under graphs.eager().  So nothing in a pass syncs
+with the host or copies from host memory: the ownership tables are device
+tensors built once per key (`_own_tensors`), and the clamp counts stay on
+the device until the entry point reads them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from functools import lru_cache
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -59,10 +68,10 @@ from ..models.densify import merge_backward, result_absw, splat_forward_scatter
 from ..models.dis import _grid_tensors, _level_flow, _search, _stage_templates
 from ..models.grid import level_geometry
 from ..models.inverse_search import build_templates
-from ..ops import kernels
+from ..ops import graphs, kernels
 from ..ops import pyramid as pyr
 from ..ops.transfer import to_device
-from .collectives import _all_gather, _axis_info, _axis_size, _exchange, _psum
+from .collectives import _all_gather, _axis_info, _axis_size, _exchange, _psum, sharded
 
 
 # ---------------------------------------------------------------------------
@@ -299,12 +308,19 @@ def _padded_pair(img1, img2, cfg: DISConfig, device):
     return a, b
 
 
+@sharded
+def _strip_pass(mesh, img1p, img2p, cfg: DISConfig, axis: str):
+    """spatial_flow's pass on one rank, as an executable."""
+    return _pair_manual(img1p, img2p, cfg, mesh, axis)
+
+
 def spatial_fn(cfg: DISConfig, mesh, axis: str = "tx"):
     """The bare sharded pipeline behind spatial_flow: a callable taking two
     padded (H, W, C) float32 images on this rank's device, run by every
-    rank of the mesh; returns the (H >> sc_l, W >> sc_l, nop) flow on each."""
+    rank of the mesh; returns the (H >> sc_l, W >> sc_l, nop) flow on each.
+    It runs through its executable (`_strip_pass`)."""
     def fn(img1p, img2p):
-        return _pair_manual(img1p, img2p, cfg, mesh, axis)
+        return _strip_pass(mesh, img1p, img2p, cfg, axis)
     return fn
 
 
@@ -571,16 +587,18 @@ def _halo_width(cfg: DISConfig, max_disp: float) -> int:
     return cfg.patch_size + int(np.ceil(max_disp)) + 2
 
 
-def _level_2d(tile1, tile2, flow_prev, flow_bw_prev, prev_is_full, own_idx,
+def _level_2d(tile1, tile2, flow_prev, flow_bw_prev, prev_is_full, own,
               sl, lw, lh, cfg, mesh, ay, ax, max_disp):
     """One pyramid level on TILE-LOCAL data: tile1/tile2 are this rank's
     (th, tw, C) raw level tiles.  Gradients, padded search tiles and the
     warp-source tile are built by HALO EXCHANGE — nothing full-size is ever
-    materialized per rank.  own_idx: the level's patches this tile owns
-    (tile_ownership's valid entries; possibly none).  flow_prev is the
+    materialized per rank.  own: the level's patches this tile owns, a
+    long tensor on the device (tile_ownership's valid entries; possibly
+    none).  flow_prev is the
     rank's coarser flow TILE (th/2, tw/2, nop), or the full coarser field
     when the previous level ran replicated (prev_is_full).  Returns
-    (flow_tile (th, tw, nop), flow_bw_tile or None, n_clamped)."""
+    (flow_tile (th, tw, nop), flow_bw_tile or None, n_clamped), n_clamped
+    a (1,) int64 tensor on the device, summed over the tiles."""
     pad = cfg.patch_size
     psz = cfg.patch_size
     nop = cfg.nop
@@ -610,13 +628,14 @@ def _level_2d(tile1, tile2, flow_prev, flow_bw_prev, prev_is_full, own_idx,
     sx0 = x0 + pad - H
 
     geo, pt_full, coarse_idx = _grid_tensors(lw, lh, cfg, dev)
-    own = torch.as_tensor(own_idx, dtype=torch.long, device=dev)
     pt_own = pt_full[own]
 
     def warm_start(prev):
-        """(p_init, clamp-hit count) from the coarser flow (full or tiled)."""
+        """(p_init, clamp-hit count) from the coarser flow (full or tiled);
+        the count an int64 tensor on the device."""
         if prev is None:
-            return torch.zeros((own.shape[0], nop), dtype=torch.float32, device=dev), 0
+            return (torch.zeros((own.shape[0], nop), dtype=torch.float32, device=dev),
+                    torch.zeros((), dtype=torch.int64, device=dev))
         cidx = coarse_idx[own]
         cw = max(lw // 2, 1)
         if prev_is_full:
@@ -630,7 +649,7 @@ def _level_2d(tile1, tile2, flow_prev, flow_bw_prev, prev_is_full, own_idx,
             p_raw = 2.0 * prev.reshape(-1, nop)[ly * tw2 + lx]
         # The max_disp contract; count hits (silent degradation guard).
         hit = torch.any(torch.abs(p_raw) > max_disp, dim=1)
-        return p_raw.clamp(-max_disp, max_disp), int(hit.sum())
+        return p_raw.clamp(-max_disp, max_disp), hit.sum()
 
     tile = (sy0, sx0, hp_g, wp_g)
     p_init, ncl_fw = warm_start(flow_prev)
@@ -639,7 +658,7 @@ def _level_2d(tile1, tile2, flow_prev, flow_bw_prev, prev_is_full, own_idx,
         tmpl = build_templates(im1p_t, dx1p_t, dy1p_t, pt_own, cfg, pad, tile_origin=(sy0, sx0))
         res = kernels.gn_search(im2p_t, tmpl, pt_own, p_init, cfg, lw, lh, pad, tile=tile)
 
-    ncl_bw = 0
+    ncl_bw = None
     if cfg.use_fb_merge:
         # Backward grid on the same tile ownership: swapped images, flipped
         # camera (oflow.cpp:154-157).
@@ -652,8 +671,8 @@ def _level_2d(tile1, tile2, flow_prev, flow_bw_prev, prev_is_full, own_idx,
                                       tile_origin=(sy0, sx0))
             res_bw = kernels.gn_search(im1p_t, tmpl_bw, pt_own, p_init_bw, cfg, lw, lh, pad,
                                        camlr=1 - cfg.camlr, tile=tile)
-    counts = torch.tensor([ncl_fw + ncl_bw], dtype=torch.int64, device=dev)
-    n_clamped = int(_psum(_psum(counts, mesh, ax), mesh, ay)[0])
+    counts = (ncl_fw if ncl_bw is None else ncl_fw + ncl_bw).reshape(1)
+    n_clamped = _psum(_psum(counts, mesh, ax), mesh, ay)
 
     # --- tile-local densify + halo reduce (no full-image psum) ---
     # fb-merge splats at the CONVERGED backward positions (up to max_disp +
@@ -666,8 +685,8 @@ def _level_2d(tile1, tile2, flow_prev, flow_bw_prev, prev_is_full, own_idx,
         if r_fw is None:  # no patches here: this tile adds nothing
             acc = torch.zeros((*acc_shape, 1 + nop), dtype=torch.float32, device=dev)
         else:
-            pt_loc = pt_own - torch.tensor([x0 - ks, y0 - ks], dtype=torch.float32,
-                                           device=dev)[None, :]
+            pt_loc = torch.stack([pt_own[:, 0] - float(x0 - ks), pt_own[:, 1] - float(y0 - ks)],
+                                 dim=1)
             we, fo = splat_forward_scatter(r_fw.p, result_absw(r_fw, cfg), pt_loc,
                                            acc_shape[1], acc_shape[0], cfg)
             if r_bw is not None:
@@ -703,7 +722,8 @@ def _gather_2d(t, mesh, ay, ax):
 def _pair_2d(tile1, tile2, h, w, own, cfg, mesh, ay, ax, max_disp):
     """Coarse-to-fine flow for one padded (h, w) pair on a (ty, tx) tile
     mesh.  tile1, tile2: this rank's (h / nty, w / ntx, C) slices of the
-    padded pair when any level is tiled, else the whole pair.
+    padded pair when any level is tiled, else the whole pair.  own: this
+    rank's owned patches per tiled level (`_own_tensors`).
 
     Levels in `own` (a CONTIGUOUS run from sc_l upward; tile_ownership
     enforces it) run tile-local: each rank builds its raw tile chain
@@ -713,15 +733,11 @@ def _pair_2d(tile1, tile2, h, w, own, cfg, mesh, ay, ax, max_disp):
     their full images derive from ONE gather of the coarsest tiled level's
     tiles (small).  Only the final finest flow is gathered full-size.
 
-    Returns (flow, clamp_counts)."""
+    Returns (flow, clamp_counts): clamp_counts["lv<sl>"] a (1,) int64
+    tensor on the device."""
     pad = cfg.patch_size
     tiled_lvls = sorted(int(k[2:]) for k in own)
     sl_t = tiled_lvls[-1] if tiled_lvls else cfg.sc_l - 1
-    own_here = {}
-    if tiled_lvls:
-        iy, _ = _axis_info(mesh, ay)
-        ix, _ = _axis_info(mesh, ax)
-        own_here = {k: idx[iy, ix][valid[iy, ix]] for k, (idx, valid) in own.items()}
 
     # --- per-rank raw tile chain for the tiled levels ---
     tiles = {}
@@ -763,7 +779,7 @@ def _pair_2d(tile1, tile2, h, w, own, cfg, mesh, ay, ax, max_disp):
         if f"lv{sl}" in own:
             flow, flow_bw, nclamp = _level_2d(
                 tiles[("t1", sl)], tiles[("t2", sl)], flow, flow_bw, prev_is_full,
-                own_here[f"lv{sl}"], sl, lw, lh, cfg, mesh, ay, ax, max_disp,
+                own[f"lv{sl}"], sl, lw, lh, cfg, mesh, ay, ax, max_disp,
             )
             clamp_counts[f"lv{sl}"] = nclamp
             prev_is_full = False
@@ -817,6 +833,25 @@ def tile_ownership(h, w, cfg, ny, nx, max_disp):
     return own
 
 
+@lru_cache(maxsize=64)
+def _own_cached(h, w, cfg, ny, nx, max_disp, iy, ix, device):
+    return {k: torch.as_tensor(idx[iy, ix][valid[iy, ix]], dtype=torch.long, device=device)
+            for k, (idx, valid) in tile_ownership(h, w, cfg, ny, nx, max_disp).items()}
+
+
+def _own_tensors(h: int, w: int, cfg: DISConfig, mesh, ay: str, ax: str, max_disp: float,
+                 device) -> Dict[str, torch.Tensor]:
+    """This rank's owned patches per tiled level of an (h, w) pair
+    (tile_ownership's valid entries of its tile), as long tensors on
+    `device`, copied there once per key.  A graph being captured reads them
+    from outside its pool, so its executable holds them (graphs.hold)."""
+    iy, ny = _axis_info(mesh, ay)
+    ix, nx = _axis_info(mesh, ax)
+    own = _own_cached(h, w, cfg, ny, nx, float(max_disp), iy, ix, device)
+    graphs.hold(*own.values())
+    return own
+
+
 def _input_tiles(img1p, img2p, own, mesh, ay, ax):
     """This rank's slices of a padded pair when any level is tiled (the JAX
     package shards the inputs over (ty, tx) then), else the whole pair."""
@@ -828,18 +863,29 @@ def _input_tiles(img1p, img2p, own, mesh, ay, ax):
     return tuple(im[iy * th : (iy + 1) * th, ix * tw : (ix + 1) * tw] for im in (img1p, img2p))
 
 
+@sharded
+def _tiled_pass(mesh, img1p, img2p, cfg: DISConfig, ay: str, ax: str, max_disp: float):
+    """spatial_flow_tiled's pass on one rank, as an executable: (flow,
+    clamp_counts), the counts (1,) int64 tensors on the device."""
+    h, w = img1p.shape[:2]
+    own = _own_tensors(h, w, cfg, mesh, ay, ax, max_disp, img1p.device)
+    t1, t2 = _input_tiles(img1p, img2p, own, mesh, ay, ax)
+    return _pair_2d(t1, t2, h, w, own, cfg, mesh, ay, ax, max_disp)
+
+
 def spatial_tiled_fn(cfg: DISConfig, mesh, h: int, w: int,
                      axes: Tuple[str, str] = ("ty", "tx"), max_disp: float = 8.0):
     """The bare 2-D tiled pipeline behind spatial_flow_tiled plus its static
-    ownership tables: returns (fn, own) with fn(img1p, img2p, own) ->
-    (flow, clamp_counts), run by every rank of the mesh on the whole padded
-    (h, w, C) pair on its device."""
+    ownership tables: returns (fn, own) with fn(img1p, img2p) -> (flow,
+    clamp_counts), run by every rank of the mesh on the whole padded (h, w,
+    C) pair on its device, through its executable (`_tiled_pass`, which
+    reads this rank's entries of own as device tensors, copied once per
+    key); clamp_counts["lv<sl>"] is a (1,) int64 tensor on the device."""
     ay, ax = axes
     own = tile_ownership(h, w, cfg, _axis_size(mesh, ay), _axis_size(mesh, ax), max_disp)
 
-    def fn(img1p, img2p, own):
-        t1, t2 = _input_tiles(img1p, img2p, own, mesh, ay, ax)
-        return _pair_2d(t1, t2, h, w, own, cfg, mesh, ay, ax, max_disp)
+    def fn(img1p, img2p):
+        return _tiled_pass(mesh, img1p, img2p, cfg, ay, ax, float(max_disp))
     return fn, own
 
 
@@ -858,9 +904,7 @@ def spatial_flow_tiled(img1, img2, cfg: DISConfig, mesh,
     callers should raise max_disp or fall back to spatial_flow."""
     cfg.validate()
     a, b = _padded_pair(img1, img2, cfg, _mesh_device(mesh))
-    h, w = a.shape[:2]
-    fn, own = spatial_tiled_fn(cfg, mesh, h, w, axes=axes, max_disp=max_disp)
-    flow, clamp_counts = fn(a, b, own)
+    flow, clamp_counts = _tiled_pass(mesh, a, b, cfg, *axes, float(max_disp))
     if return_diagnostics:
-        return flow, clamp_counts
+        return flow, {k: int(v) for k, v in clamp_counts.items()}
     return flow

@@ -1,9 +1,10 @@
 """Port (of_dis_tpu_torch) compiled executables on the CPU (ops/graphs.py).
 
 The cache's bookkeeping runs through its capture interface with a
-recording stand-in for CUDA graphs (`Recorder`): one capture per key, the
-keys the entry points make, launch counts added per replay, eviction at
-the bound, results that outlive the next replay, and held tensors.  Then
+recording stand-in for CUDA graphs (`Recorder`, tests/graph_recorder.py):
+one capture per key, the keys the entry points make, launch counts added
+per replay, eviction at the bound, results that outlive the next replay,
+and held tensors.  Then
 the executables under their JAX names against the JAX functions of the
 same name (mean EPE, the bound of test_torch_dis.py::
 test_dis_flow_matches_jax).  On the card, tests/test_torch_graphs_gpu.py
@@ -19,6 +20,7 @@ import torch
 from scipy.ndimage import gaussian_filter
 
 from golden_util import epe
+from graph_recorder import POOL, Recorder
 from of_dis_tpu import DISConfig
 from of_dis_tpu.models import dis as jdis
 from of_dis_tpu.parallel import video as jvideo
@@ -26,49 +28,8 @@ from of_dis_tpu_torch import eager
 from of_dis_tpu_torch.config import from_reference
 from of_dis_tpu_torch.models import dis as tdis
 from of_dis_tpu_torch.ops import graphs, kernels
+from of_dis_tpu_torch.parallel import collectives
 from of_dis_tpu_torch.parallel import video as tvideo
-
-POOL = 1 << 20  # the stand-in's pool per capture, bytes
-
-
-class Recorder:
-    """CudaGraphs' interface on the CPU.  A capture runs the function once
-    and keeps its results as the graph's output buffers; a replay runs it
-    again with the launch counters left as they were (a graph calls no
-    wrapper) and writes into those same buffers, as a graph rewrites its
-    pool.  Every call is recorded."""
-
-    def __init__(self):
-        self.warm_ups = 0
-        self.captures = []
-        self.replays = 0
-        self.released = []
-
-    def warm_up(self, run, device):
-        self.warm_ups += 1
-        run()
-
-    def pool_bytes(self, handle, device):
-        return POOL
-
-    def capture(self, run, device):
-        handle = dict(run=run, out=run())
-        self.captures.append(handle)
-        return handle, handle["out"]
-
-    def replay(self, handle):
-        counts = dict(kernels.launches)
-        new = handle["run"]()
-        kernels.launches.update(counts)
-        bufs, fresh = [], []
-        graphs._flatten(handle["out"], bufs)
-        graphs._flatten(new, fresh)
-        for b, f in zip(bufs, fresh):
-            b.copy_(f)
-        self.replays += 1
-
-    def release(self, handle):
-        self.released.append(handle)
 
 
 def _twice_plus(x, y, scale: float):
@@ -165,6 +126,42 @@ def test_tensors_read_from_outside_stay_held():
     del ex
     gc.collect()
     assert ref() is None
+
+
+def test_sharded_tables_per_mesh(launches):
+    """call_sharded keeps a table per mesh key, bounded by max_per_mesh and
+    evicted only by calls on that mesh; a replay adds the exchanges its
+    capture counted; drop_meshes releases the tables it names."""
+    rec = Recorder()
+    cache = graphs.ExecutableCache(rec, max_per_device=1, max_per_mesh=2)
+    counter = collectives.exchanges
+    saved = dict(counter)
+
+    def pass_(x, y, scale: float):
+        counter["exchanges"] += 3
+        return _twice_plus(x, y, scale)
+
+    x, y = torch.ones(3), torch.zeros(3)
+    groups_a, groups_b = ("group a",), ("group b",)
+    for s in (1.0, 2.0, 3.0):
+        cache.call_sharded(pass_, (x, y, s), {}, "mesh a", groups_a, counter)
+    cache.call_sharded(pass_, (x, y, 1.0), {}, "mesh b", groups_b, counter)
+    cache.call(_twice_plus, (x, y, 1.0), {})
+    cache.call(_twice_plus, (x, y, 2.0), {})  # evicts a per-device key only
+    assert [ex.key[1].kids[0].kids[2] for ex in cache.sharded_entries("mesh a")] == [2.0, 3.0]
+    assert len(cache.sharded_entries("mesh b")) == 1 and len(cache.entries()) == 1
+    assert all(h["collective"] for h in rec.captures[:4]) and not rec.captures[4]["collective"]
+    (ex,) = cache.sharded_entries("mesh b")
+    assert ex.exchanges == {"exchanges": 3} and ex.launches == {"level_search": 1}
+    collectives.reset_exchanges()
+    cache.call_sharded(pass_, (x, y, 1.0), {}, "mesh b", groups_b, counter)
+    assert counter["exchanges"] == 3 and ex.replays == 2
+    counter.update(saved)
+    cache.drop_meshes(lambda groups: groups == groups_a)
+    assert cache.sharded_entries("mesh a") == [] and len(cache.sharded_entries()) == 1
+    assert len(rec.released) == 1 + 1 + 2  # evicted on a, on the device, dropped a
+    cache.clear()
+    assert cache.sharded_entries() == [] and len(rec.released) == len(rec.captures)
 
 
 def _small_cfg(**kw):

@@ -600,11 +600,12 @@ def test_tile_level_without_patches(cuda, tmp_path):
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("ty", "tx"))
         raw = full[0][0, cfg.patch_size:-cfg.patch_size, cfg.patch_size:-cfg.patch_size]
         kernels.reset_launches()
-        flow, flow_bw, clamped = spatial._level_2d(raw, raw, None, None, True,
-                                                   np.zeros(0, np.int32), 1, lw, lh, cfg, mesh,
-                                                   "ty", "tx", 8.0)
+        own = torch.zeros(0, dtype=torch.long, device=cuda)  # the tile's patches: none
+        flow, flow_bw, clamped = spatial._level_2d(raw, raw, None, None, True, own, 1, lw, lh,
+                                                   cfg, mesh, "ty", "tx", 8.0)
         torch.cuda.synchronize()
         assert kernels.launches["gn_search"] == 0
-        assert flow.shape == (lh, lw, 2) and not flow.any() and flow_bw is None and clamped == 0
+        assert flow.shape == (lh, lw, 2) and not flow.any() and flow_bw is None
+        assert clamped.tolist() == [0]  # a (1,) count on the card
     finally:
         dist.destroy_process_group()

@@ -13,7 +13,12 @@ compares:
     1e-3, the bound the JAX package holds its own spatial_flow to
     (tests/test_spatial.py:56);
   - batched_flow and process_video_batched with a data mesh against the
-    same calls without one: bit for bit.
+    same calls without one: bit for bit;
+  - the sharded passes through their executables (a Recorder for CUDA
+    graphs): bit-equal to the eager calls, a replay counting the eager
+    call's launches and exchanges, the clamp counts unchanged, a table per
+    mesh (by its groups), the same keys on every rank under a small bound,
+    and the tables dropped with their groups.
 Outside the world: tile_ownership equals the JAX tables, and the tile form
 of the plain GN search (build_templates(tile_origin=), optimize_level(
 tile=)) equals the untiled search bit for bit and the JAX tile form at
@@ -22,6 +27,7 @@ holds the port's spatial_flow / spatial_flow_tiled against the JAX ones
 (whose shard_map compile takes minutes on the CPU)."""
 
 import dataclasses
+import json
 import time
 
 import jax
@@ -360,3 +366,106 @@ def test_spatial_matches_jax_spatial(world, kind):
     np.testing.assert_allclose(ranks[0][f"strips {kind}"], strips, **TOL)
     tiles = np.asarray(jsp.spatial_flow_tiled(a, b, cfg, _jax_mesh((2, 2), ("ty", "tx"))))
     np.testing.assert_allclose(ranks[0][f"tiles {kind}"], tiles, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The sharded passes as executables (ops/graphs.py::call_sharded, with the
+# Recorder standing in for CUDA graphs on the CPU)
+# ---------------------------------------------------------------------------
+
+GRAPH_CASES = ["strips flow", "tiles flow max_disp 1", "tiles sparse", "flow_2d_tiled"]
+
+
+def _graph_counts(ranks, name):
+    return [json.loads(str(ranks[r][f"graph {name} counts"])) for r in range(worker.WORLD)]
+
+
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_sharded_executable_equals_eager(world, name):
+    """spatial_flow, spatial_flow_tiled and flow_2d_tiled through their
+    executables: the capture's call and a replay give the eager call's
+    bits on every rank, and the eager call ran eager, the others through
+    the cache."""
+    ranks, _, _ = world
+    for r in range(worker.WORLD):
+        want, first, got = ranks[r][f"graph {name}"]
+        np.testing.assert_array_equal(first, want, err_msg=f"rank {r}")
+        np.testing.assert_array_equal(got, want, err_msg=f"rank {r}")
+    for c in _graph_counts(ranks, name):
+        assert c["eager"]["modes"] == {"graph": 0, "eager": 1}
+        assert c["first"]["modes"] == c["replay"]["modes"] == {"graph": 1, "eager": 0}
+
+
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_sharded_replay_counts_as_eager(world, name):
+    """A replay adds the launches and exchanges its capture recorded: one
+    replay counts what the eager call counts; the first call counts its
+    warm-up (an eager run) and its replay."""
+    ranks, _, _ = world
+    for c in _graph_counts(ranks, name):
+        eager, first, replay = c["eager"], c["first"], c["replay"]
+        assert eager["exchanges"]["exchanges"] > 0
+        assert replay["launches"] == eager["launches"]
+        assert replay["exchanges"] == eager["exchanges"]
+        assert first["exchanges"] == {k: 2 * n for k, n in eager["exchanges"].items()}
+        assert first["launches"] == {k: 2 * n for k, n in eager["launches"].items()}
+    tables = json.loads(str(ranks[0]["graph tables"]))
+    # one collective capture per case, then the replays of both calls
+    assert tables["captures"] == tables["entries"] == len(GRAPH_CASES)
+    assert all(tables["collective"]) and tables["replays"] == 2 * len(GRAPH_CASES)
+
+
+@pytest.mark.parametrize("name", ["tiles flow max_disp 1", "tiles sparse", "flow_2d_tiled"])
+def test_sharded_clamp_counts_unchanged(world, name):
+    """The clamp counts stay on the device through the pass and come out
+    as the same ints (spatial_flow_tiled) or int64 per pair (flow_2d_tiled)
+    as the eager call's, ranks without patches included."""
+    ranks, _, _ = world
+    counts = _graph_counts(ranks, name)
+    for c in counts:
+        want, first, got = c["clamps"]
+        assert first == want and got == want
+        assert c["clamps"][0] == counts[0]["clamps"][0]
+    if name == "tiles flow max_disp 1":
+        assert sum(counts[0]["clamps"][0].values()) > 0
+        want = ranks[0]["tiles flow clamps max_disp 1"]
+        assert [counts[0]["clamps"][0][k] for k in sorted(counts[0]["clamps"][0])] == list(want)
+    if name == "tiles sparse":
+        assert list(counts[0]["clamps"][0]) == ["lv0"]
+
+
+def test_sharded_meshes_of_one_layout_key_apart(world):
+    """A mesh made again over new groups compares equal to the first, yet
+    its executables sit in a table of their own (the groups key it): the
+    second mesh's pass is captured anew and gives the same bits."""
+    ranks, _, _ = world
+    for r in range(worker.WORLD):
+        keys = json.loads(str(ranks[r]["graph other mesh keys"]))
+        assert keys == dict(same_layout=True, tables=2, entries_m14=1, entries_m14b=1)
+        np.testing.assert_array_equal(ranks[r]["graph other mesh"],
+                                      ranks[r]["graph tiles sparse"][0])
+
+
+def test_sharded_bound_same_keys_on_every_rank(world):
+    """With SMALL_BOUND executables per mesh, the same call sequence leaves
+    every rank holding the same keys after each call, least recently used
+    out first."""
+    ranks, _, _ = world
+    got = [json.loads(str(ranks[r]["graph bound keys"])) for r in range(worker.WORLD)]
+    for g in got[1:]:
+        assert g == got[0]
+    held = got[0]["held"]
+    assert [len(h) for h in held] == [1, 2, 2, 2]
+    # _tiled_pass(mesh, img1p, img2p, cfg, ay, ax, max_disp)
+    md = [{float(k.rsplit(", ", 1)[-1].rstrip(")")) for k in h} for h in held]
+    assert md == [{0.0}, {0.0, 1.0}, {1.0, 2.0}, {2.0, 0.0}]
+    assert got[0]["captures"] == 4 and got[0]["released"] == 2
+
+
+def test_sharded_tables_dropped_with_their_groups(world):
+    """After destroy_process_group, every table of the world's meshes is
+    dropped and its executables released."""
+    ranks, _, _ = world
+    for r in range(worker.WORLD):
+        held, left, released = ranks[r]["graph tables after destroy"]
+        assert held == len(GRAPH_CASES) + 1 and left == 0 and released == held

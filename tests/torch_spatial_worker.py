@@ -1,16 +1,21 @@
 """One rank of the 4-rank gloo world that tests/test_torch_spatial.py starts
 on the CPU: every case of the port's spatial sharding (of_dis_tpu_torch/
 parallel/spatial.py, multihost.py, and mesh= of batch.py and video.py),
-run in one order by every rank; each rank writes its results to
-<out>/rank<r>.npz (and the video cases their files under <out>/).  Imports
-no JAX, so the ranks start quickly; the parent compares the results with
-the JAX package.
+run in one order by every rank, then spatial_flow, spatial_flow_tiled and
+flow_2d_tiled through their sharded executables (ops/graphs.py::
+call_sharded, the Recorder of tests/graph_recorder.py standing in for CUDA
+graphs; kernel launches count 0 on the CPU, the card's spatial nccl phase
+counts them); each rank writes its results to <out>/rank<r>.npz (and the
+video cases their files under <out>/).  Imports no JAX, so the ranks start
+quickly; the parent compares the results with the JAX package.
 
 The inputs are made here from seeds (numpy), and the parent makes the same
 ones by importing this module."""
 
 from __future__ import annotations
 
+import json
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -80,6 +85,40 @@ def halo_inputs():
     tile = rng.randn(12, 16, 2).astype(np.float32)
     acc = rng.randn(2, 2, 6 + 2 * HALO_K, 8 + 2 * HALO_K, 3).astype(np.float32)
     return strip, tile, acc
+
+
+# the sharded passes run through a cache of the Recorder stand-in: a few
+# executables per mesh in the bound case
+SMALL_BOUND = 2
+BOUND_MAX_DISP = (0.0, 1.0, 2.0, 0.0)
+
+
+@contextmanager
+def recorded_graphs(cache):
+    """Every sharded pass through `cache` (on the CPU, with gloo: the
+    capture and replays of ops/graphs.py's sharded executables, with the
+    Recorder standing in for CUDA graphs)."""
+    from of_dis_tpu_torch.ops import graphs
+    from of_dis_tpu_torch.parallel import collectives
+
+    saved = graphs.cache, collectives.capturable
+    graphs.cache, collectives.capturable = cache, lambda mesh: True
+    try:
+        yield
+    finally:
+        graphs.cache, collectives.capturable = saved
+
+
+def counted(fn):
+    """fn()'s result and the kernel launches, exchanges and modes it counted."""
+    from of_dis_tpu_torch.ops import kernels
+    from of_dis_tpu_torch.parallel import collectives
+
+    kernels.reset_launches()
+    collectives.reset_exchanges()
+    out = fn()
+    return out, dict(launches=dict(kernels.launches), exchanges=dict(collectives.exchanges),
+                     modes=dict(collectives.modes))
 
 
 def run(rank: int, store: str, out: str) -> None:
@@ -180,6 +219,70 @@ def run(rank: int, store: str, out: str) -> None:
         for m in (tx4, m22, m14, dx22, dm) for d in m.mesh_dim_names])
     res["exchanges"] = np.array([collectives.exchanges["exchanges"],
                                  collectives.exchanges["staged_bytes"]])
-    np.savez(out / f"rank{rank}.npz", **res)
+
+    # ---- the sharded passes as executables (the Recorder for CUDA graphs) ----
+    from graph_recorder import Recorder
+
+    from of_dis_tpu_torch.ops import graphs
+
+    def tiles(a, b, cfg, mesh, md):
+        flow, c = spatial.spatial_flow_tiled(a, b, cfg, mesh, max_disp=md,
+                                             return_diagnostics=True)
+        return flow.numpy(), {k: c[k] for k in sorted(c)}
+
+    def tiled_2d(a, b, cfg):
+        flow, c = flow_2d_tiled(a, b, cfg, m22, return_diagnostics=True)
+        return flow.numpy(), {k: c[k].tolist() for k in sorted(c)}
+
+    flow_cfg, sparse_cfg = (DISConfig(**config(k)).validate() for k in ("flow", "sparse"))
+    cases = {
+        "strips flow": lambda: (spatial.spatial_flow(*pair("flow"), flow_cfg, tx4).numpy(), {}),
+        "tiles flow max_disp 1": lambda: tiles(*pair("flow"), flow_cfg, m22, 1.0),
+        "tiles sparse": lambda: tiles(*pair("sparse"), sparse_cfg, m14, 0.0),
+        "flow_2d_tiled": lambda: tiled_2d(*batch(2), flow_cfg),
+    }
+    cache = graphs.ExecutableCache(Recorder())
+    for name, fn in cases.items():
+        (want, want_cc), eager_counts = counted(fn)
+        with recorded_graphs(cache):
+            (first, first_cc), first_counts = counted(fn)
+            (got, got_cc), replay_counts = counted(fn)
+        res[f"graph {name}"] = np.stack([want, first, got])
+        res[f"graph {name} counts"] = np.array(json.dumps(dict(
+            eager=eager_counts, first=first_counts, replay=replay_counts,
+            clamps=[want_cc, first_cc, got_cc])))
+    res["graph tables"] = np.array(json.dumps(dict(
+        entries=len(cache.sharded_entries()), captures=len(cache.backend.captures),
+        collective=[h["collective"] for h in cache.backend.captures],
+        replays=cache.backend.replays)))
+
+    # two meshes of one layout over different groups key apart
+    m14b = mesh_3d(1, 1, 4, device_type=cpu)
+    a, b = pair("sparse")
+    with recorded_graphs(cache):
+        flow_b, _ = tiles(a, b, sparse_cfg, m14b, 0.0)
+    res["graph other mesh"] = flow_b
+    res["graph other mesh keys"] = np.array(json.dumps(dict(
+        same_layout=bool(m14b == m14), tables=len({collectives.mesh_identity(m)[0]
+                                                   for m in (m14, m14b)}),
+        entries_m14=len(cache.sharded_entries(collectives.mesh_identity(m14)[0])),
+        entries_m14b=len(cache.sharded_entries(collectives.mesh_identity(m14b)[0])))))
+
+    # a small bound per mesh: every rank holds the same keys after each call
+    small = graphs.ExecutableCache(Recorder(), max_per_mesh=SMALL_BOUND)
+    held = []
+    with recorded_graphs(small):
+        for md in BOUND_MAX_DISP:
+            tiles(a, b, sparse_cfg, m14, md)
+            held.append([graphs.describe(ex.key) for ex in small.sharded_entries()])
+    res["graph bound keys"] = np.array(json.dumps(dict(
+        held=held, captures=len(small.backend.captures), released=len(small.backend.released))))
+
+    # a table whose groups are destroyed is dropped at the next sharded call
     dist.barrier()
+    held = len(cache.sharded_entries())
     dist.destroy_process_group()
+    cache.drop_meshes(collectives._gone)
+    res["graph tables after destroy"] = np.array([held, len(cache.sharded_entries()),
+                                                  len(cache.backend.released)])
+    np.savez(out / f"rank{rank}.npz", **res)

@@ -84,11 +84,13 @@ def _stage_templates(im_a, dx_a, dy_a, im_b, dx_b, dy_b, pt_ref, cfg: DISConfig,
     kernels.search_route decides once per level shape, for both directions:
     on levels it sends to the whole-level search the templates are made
     inside that kernel, and this stage forwards the level images (hes
-    None); elsewhere they are built here for gn_search."""
+    None); elsewhere they are built here for gn_search.  Counts the level
+    in kernels.routes (a replay adds what its capture counted)."""
     hp, wp, c = im_a.shape[-3:]
     psz = cfg.patch_size
     route = kernels.search_route(hp, wp, c, pt_ref.shape[0], psz,
                                  min(2 * psz + 2, hp), min(2 * psz + 2, wp))
+    kernels.routes[route] += 1
 
     def templates(im, dx, dy):
         if route == "level":
@@ -115,11 +117,15 @@ def _stage_init(flow_prev: Optional[torch.Tensor], coarse_idx, b: int, n: int,
 def _search(tmpl: PatchTemplates, im_b, pt_ref, p_init, cfg: DISConfig, w: int, h: int,
             pad: int, camlr: Optional[int] = None):
     """One direction's level search, in the kernel the templates stage
-    chose; camlr overrides cfg.camlr (the stereo sign clamp)."""
+    chose, inside the host span dis.search.level or dis.search.gn (seen by
+    a profiler in eager runs and captures; a replay runs no host code);
+    camlr overrides cfg.camlr (the stereo sign clamp)."""
     if tmpl.hes is None:
-        return kernels.level_search(tmpl.tmp, tmpl.dx, tmpl.dy, im_b, pt_ref, p_init,
-                                    cfg, w, h, pad, camlr=camlr)
-    return kernels.gn_search(im_b, tmpl, pt_ref, p_init, cfg, w, h, pad, camlr=camlr)
+        with torch.profiler.record_function("dis.search.level"):
+            return kernels.level_search(tmpl.tmp, tmpl.dx, tmpl.dy, im_b, pt_ref, p_init,
+                                        cfg, w, h, pad, camlr=camlr)
+    with torch.profiler.record_function("dis.search.gn"):
+        return kernels.gn_search(im_b, tmpl, pt_ref, p_init, cfg, w, h, pad, camlr=camlr)
 
 
 def _stage_optimize(im_a, im_b, tmpl_fw, tmpl_bw, pt_ref, p_init, p_init_bw,

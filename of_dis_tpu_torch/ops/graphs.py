@@ -39,7 +39,9 @@ Here each is a function wrapped by `executable`:
     true: the warm-up's launches run and are counted, a capture launches
     nothing and is not counted, and each replay adds the launches the
     capture recorded.  So a replay counts what an eager run of the same call
-    counts.
+    counts.  The search-route counter (ops/kernels.py `routes`, the levels
+    each route searched) is kept the same way, and the executable keeps
+    what its capture counted (`Executable.routes`).
   - A capture that CUDA refuses raises, naming the key and the error; there
     is no eager retry.  No operation on the executables' paths syncs with
     the host or copies from host memory once the warm-up has run (the
@@ -208,7 +210,9 @@ def describe(key) -> str:
 class Executable:
     """One captured call: its graph (the backend's handle), the static
     tensors it reads and writes, the launches one replay makes, the
-    tensors it holds from outside its pool, and what its capture cost.
+    tensors it holds from outside its pool, what its capture cost, and
+    the pyramid levels each search route took in it ({"level": n, "gn":
+    m}, routes that took none left out).
     A sharded one also names the counter of its collectives and the
     counts one replay adds to it."""
     key: tuple
@@ -220,6 +224,7 @@ class Executable:
     held: List[torch.Tensor]
     capture_ms: float
     pool_bytes: int
+    routes: Dict[str, int] = field(default_factory=dict)
     replays: int = 0
     exchanges: Dict[str, int] = field(default_factory=dict)
     exchange_counter: Optional[Dict[str, int]] = None
@@ -390,6 +395,8 @@ class ExecutableCache:
         ex.replays += 1
         for k, n in ex.launches.items():
             kernels.launches[k] += n
+        for k, n in ex.routes.items():
+            kernels.routes[k] += n
         for k, n in ex.exchanges.items():
             ex.exchange_counter[k] += n
 
@@ -402,7 +409,9 @@ class ExecutableCache:
             return fn(*args, **kwargs)
 
         self.backend.warm_up(run, device)
-        counters = [kernels.launches] + ([exchanges] if exchanges is not None else [])
+        counters = [kernels.launches, kernels.routes]
+        if exchanges is not None:
+            counters.append(exchanges)
         before = [dict(c) for c in counters]
         held: List[torch.Tensor] = []
         t0 = time.perf_counter()
@@ -429,7 +438,8 @@ class ExecutableCache:
                           out_spec=out_spec, launches=made[0], held=held,
                           capture_ms=capture_ms,
                           pool_bytes=self.backend.pool_bytes(handle, device),
-                          exchanges=made[1] if exchanges is not None else {},
+                          routes=made[1],
+                          exchanges=made[2] if exchanges is not None else {},
                           exchange_counter=exchanges)
 
 

@@ -4,7 +4,9 @@ Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version for CPU tensors; any other device, dtype, shape or layout
 raises.  There is no fallback from the kernel to the plain version on the
 card.  `launches` counts kernel launches (never plain-version calls), so a
-run can show that it went through the kernels.
+run can show that it went through the kernels; `routes` counts the pyramid
+levels that each route of `search_route` searched (models/dis.py::
+_stage_templates counts them, on the card and on the CPU alike).
 
 Every wrapper takes a batch of image pairs, a leading axis B on its images
 and fields, and launches once for all of them; given one pair's tensors
@@ -38,8 +40,8 @@ from the host, and its branches (the variant, the pair axis) depend on
 shapes only.  The launchers' one-time queries (csrc/launch.cuh's
 PerDevice: SM count, occupancy, attributes) run in the executables'
 warm-up, before a capture.  Under replay a wrapper is not called:
-graphs.py adds the launches its capture recorded to `launches`.  Keep
-these properties when a wrapper changes.
+graphs.py adds the launches and routes its capture recorded to `launches`
+and `routes`.  Keep these properties when a wrapper changes.
 """
 
 from __future__ import annotations
@@ -54,11 +56,14 @@ from . import build
 
 launches: Dict[str, int] = {"level_search": 0, "gn_search": 0, "refine_inner": 0,
                             "sor_scalar": 0, "sor_coupled": 0}
+routes: Dict[str, int] = {"level": 0, "gn": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    """Zero `launches` and `routes`."""
+    for counter in (launches, routes):
+        for k in counter:
+            counter[k] = 0
 
 
 def _check(name: str, t: torch.Tensor, shape: Sequence[int], device: torch.device,

@@ -19,6 +19,13 @@ Here, on a CUDA device:
     frame, so each frame is copied once on the host), then queues one
     `copy_(..., non_blocking=True)` on the current stream, in order before
     the tensor's first use.
+  - `to_device` stages an array in its own dtype (float32 for one torch
+    cannot hold), copied by numpy on the calling thread, and converts it
+    to float32 on the card after the upload: a quarter of the bytes for a
+    uint8 frame, and no copy on the host's intra-op threads, which stalled
+    from a few in a hundred to half of a window's pairs by 5-30 ms when
+    they woke after a wait on the card (PERF.md).  A CPU tensor is staged
+    in its own dtype as well.
   - A download queues a `non_blocking` copy into a pinned host tensor on
     the current stream, behind the work that produces the result, and
     records an event after it; `HostCopy.numpy()` waits on that event only.
@@ -84,20 +91,25 @@ def _cpu_tensor(a: np.ndarray) -> torch.Tensor:
 def to_device(x, device) -> torch.Tensor:
     """x (a numpy array, anything np.asarray takes, or a tensor) as a float32
     tensor on `device`.  Onto a card the copy is queued through pinned
-    memory and the call returns before it has run."""
+    memory in x's own dtype and the call returns before it has run; the
+    card converts it (the same values: every such conversion rounds to
+    nearest on both)."""
     device = torch.device(device)
     if isinstance(x, torch.Tensor):
         if device.type != "cuda" or x.device.type != "cpu":
             return x.to(device=device, dtype=torch.float32)
-        host = torch.empty(x.shape, dtype=torch.float32, pin_memory=True)
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         host.copy_(x)
-        return _upload(host, device)
+        return _upload(host, device).to(torch.float32)
     if device.type != "cuda":
-        return _cpu_tensor(np.asarray(x, dtype=np.float32)).to(device)
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
     x = np.asarray(x)
-    host = torch.empty(x.shape, dtype=torch.float32, pin_memory=True)
-    host.copy_(_cpu_tensor(x))
-    return _upload(host, device)
+    if x.dtype not in _TORCH_DTYPES:
+        x = np.asarray(x, dtype=np.float32)
+    host = torch.empty(x.shape, dtype=torch.from_numpy(np.empty(0, x.dtype)).dtype,
+                       pin_memory=True)
+    host.numpy()[...] = x
+    return _upload(host, device).to(torch.float32)
 
 
 def stack_to_device(arrays: Iterable, n: int, device) -> torch.Tensor:

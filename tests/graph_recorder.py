@@ -11,9 +11,9 @@ POOL = 1 << 20  # the stand-in's pool per capture, bytes
 class Recorder:
     """CudaGraphs' interface on the CPU.  A capture runs the function once
     and keeps its results as the graph's output buffers; a replay runs it
-    again with the launch and exchange counters left as they were (a graph
-    calls no wrapper and no collective's Python) and writes into those
-    same buffers, as a graph rewrites its pool.  Every call is recorded,
+    again with the launch, route and exchange counters left as they were
+    (a graph calls no wrapper and no collective's Python) and writes into
+    those same buffers, as a graph rewrites its pool.  Every call is recorded,
     and whether each capture was collective."""
 
     def __init__(self):
@@ -35,9 +35,10 @@ class Recorder:
         return handle, handle["out"]
 
     def replay(self, handle):
-        counts = [dict(c) for c in (kernels.launches, collectives.exchanges)]
+        counters = (kernels.launches, kernels.routes, collectives.exchanges)
+        counts = [dict(c) for c in counters]
         new = handle["run"]()
-        for c, saved in zip((kernels.launches, collectives.exchanges), counts):
+        for c, saved in zip(counters, counts):
             c.update(saved)
         bufs, fresh = [], []
         graphs._flatten(handle["out"], bufs)

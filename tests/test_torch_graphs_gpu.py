@@ -94,6 +94,24 @@ def test_path_graph_equals_eager(cuda, name):
     assert not torch.equal(other_want, want)
 
 
+def test_executable_records_routes(cuda):
+    """The search routes a capture counted (Executable.routes) are the
+    eager run's, and each replay adds them to kernels.routes, as it adds
+    its launches: op4 at 128x96 searches levels 2-1 whole and level 0 on
+    the GN route."""
+    img1, img2, cfg = _path("op4 gray")
+    kernels.reset_launches()
+    with eager():
+        dis_raw(img1, img2, cfg, device=cuda)
+    assert kernels.routes == {"level": 2, "gn": 1}
+    dis_raw(img1, img2, cfg, device=cuda)  # captures, unless an earlier test did
+    (ex,) = [e for e in graphs.cache.entries(cuda) if e.key[0] is tdis.dis_padded_jit.fn
+             and e.key[1].kids[0].kids[2] == cfg]
+    assert ex.routes == {"level": 2, "gn": 1}
+    _counted(lambda: [dis_raw(img1, img2, cfg, device=cuda) for _ in range(2)])
+    assert kernels.routes == {"level": 4, "gn": 2}
+
+
 @pytest.mark.parametrize("b", [1, 2, 7])
 def test_batched_graph_equals_eager_and_each_pair(cuda, b):
     """batched_flow's replay of _batched_padded: bit-equal to its eager run

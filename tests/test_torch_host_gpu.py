@@ -1,5 +1,7 @@
 """The port's host-device copies (ops/transfer.py) on the card: an upload
-returns while work queued ahead of it still runs, a download's handle
+returns while work queued ahead of it still runs, an array or a CPU
+tensor goes up in its own dtype and is converted on the card to numpy's
+values, a download's handle
 waits for that copy only and gives .cpu()'s bits, the batched video driver
 waits once per flushed chunk and writes what a synchronous run writes,
 and a pinned buffer is not handed out again before its copy has run.
@@ -70,6 +72,26 @@ def test_to_device_returns_while_queued_work_runs(cuda, sleep):
     u8 = (x[:2, :, :, None] * 255).astype(np.uint8).repeat(3, axis=3)
     bgr = u8[..., ::-1]  # negative strides, as an image's channels reversed
     assert np.array_equal(transfer.to_device(bgr, cuda).cpu().numpy(), bgr.astype(np.float32))
+
+
+@pytest.mark.parametrize("source", ["numpy", "tensor"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float64, np.bool_, np.float32])
+def test_to_device_converts_on_the_card(cuda, monkeypatch, dtype, source):
+    """An array or a CPU tensor goes up in its own dtype (a uint8 frame's
+    bytes, not float32's) and comes out as numpy's float32 conversion of
+    it, bit for bit, an array's negative strides included."""
+    base = np.random.RandomState(1).rand(436, 1024, 3)
+    x = {np.uint8: lambda: (base * 255).astype(np.uint8),
+         np.int16: lambda: (base * 6000 - 3000).astype(np.int16),
+         np.float64: lambda: base * 300 - 20,
+         np.bool_: lambda: base > 0.5,
+         np.float32: lambda: (base * 300 - 20).astype(np.float32)}[dtype]()[:, ::-1]
+    staged, real = [], transfer._upload
+    monkeypatch.setattr(transfer, "_upload", lambda h, d: staged.append(h.dtype) or real(h, d))
+    got = transfer.to_device(x if source == "numpy" else torch.from_numpy(x.copy()), cuda)
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), x.astype(np.float32))
+    assert staged == [torch.from_numpy(np.empty(0, dtype)).dtype]
 
 
 def test_to_host_waits_for_its_copy_only(cuda, sleep):

@@ -4,13 +4,19 @@ gn_route (of_dis_tpu/ops/pallas_kernels.py:1259) under the mapping
 "level" -> "level", "untiled" / "tiled<ps>" -> "gn", "xla" -> "level", on
 every level of op1-4 flow and op2 stereo, gray and RGB, at the reference's
 QA size (1024x436) and at the small goldens' size (256x160).  Pure shape
-arithmetic."""
+arithmetic; then the port's counter of the routes its levels took."""
 
+import dataclasses
+
+import numpy as np
 import pytest
 
 from of_dis_tpu.config import operating_point
 from of_dis_tpu.models.grid import level_geometry
 from of_dis_tpu.ops.pallas_kernels import gn_route
+from of_dis_tpu_torch import dis_flow
+from of_dis_tpu_torch import operating_point as torch_operating_point
+from of_dis_tpu_torch.ops import kernels
 from of_dis_tpu_torch.ops.kernels import (
     refine_variant,
     refine_variants,
@@ -127,3 +133,18 @@ def test_variant_pickers_take_the_batch(b):
     if b >= 16:
         assert sor_variant(56, 128, 2, b) == ("grid", 0)
     assert refine_variant(14, 32, 1, b) == sor_variant(14, 32, 1, b) == ("block", 1)
+
+
+def test_route_counter_counts_each_level_per_call():
+    """The port's search-route counter (ops/kernels.py `routes`) on the CPU:
+    each call counts every pyramid level once under the route search_route
+    gives it; op4 at 128x96 searches levels 2-1 whole and level 0 on the GN
+    route.  Iterations cut to 2 (the route depends on shapes only)."""
+    cfg = dataclasses.replace(torch_operating_point(4, 128), max_iter=2, min_iter=2)
+    img = np.random.RandomState(0).rand(96, 128).astype(np.float32) * 255
+    kernels.reset_launches()
+    dis_flow(img, np.roll(img, 2, axis=1), cfg, device="cpu")
+    assert kernels.routes == {"level": 2, "gn": 1}
+    dis_flow(img, img, cfg, device="cpu")
+    assert kernels.routes == {"level": 4, "gn": 2}
+    assert sum(kernels.launches.values()) == 0  # plain versions launch nothing

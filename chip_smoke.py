@@ -18,7 +18,11 @@ sor_coupled (on no path) seeded fields at op2's level shapes and up to
 448x1024; the variants must give the same bits as one another and as their
 plain versions, and each prints its variants' times, the one
 refine_variant / sor_variant picks and a fit of each variant's cost per
-phase.  The merge's scatter runs twice on the card on op2 gray fb's finest
+phase.  The entry's frame_pad and flow_upscale (one launch of each per call
+of dis_raw or batched_flow) equal their plain versions on every recorded
+call, and are timed on op2 gray's frames as uint8 at B = 1 and 32 and on
+the flows of op2, stereo gray and op4 gray, beside PyTorch's own ops for
+the same result.  The merge's scatter runs twice on the card on op2 gray fb's finest
 level (the same bits required) and once on the CPU.  A batched phase then
 drives op2 gray (B = 32), stereo gray (B = 8), op4 gray (B = 4) and op2
 gray fb (B = 4) on distinct pairs through batched_flow: each pair must
@@ -110,7 +114,11 @@ EPE_GOLDEN = 0.08            # tests/test_golden_fullres.py:24
 EPE_CPU = 0.05               # tests/test_golden_fullres.py:87
 EPE_SHARDED = 1e-3           # sharded vs single-device, tests/test_torch_spatial.py's bound
 CPU_LIMIT_S = 60.0           # op4's card-vs-CPU check runs only if its CPU pair takes less
-KERNELS = ("level_search", "gn_search", "refine_inner", "sor_scalar", "sor_coupled")
+KERNELS = ("level_search", "gn_search", "refine_inner", "sor_scalar", "sor_coupled",
+           "frame_pad", "flow_upscale")
+# The entry's two kernels: one launch of each per call of dis_raw's or
+# batched_flow's executable (models/dis.py::dis_entry_jit), whatever B is.
+ENTRY = dict(frame_pad=1, flow_upscale=1)
 
 OF = ("of1.png", "of2.png")
 DE = ("de1.png", "de2.png")
@@ -162,8 +170,38 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def expected_launches(name: str) -> dict:
-    return {k: PATHS[name][5].get(k, 0) for k in KERNELS}
+def expected_launches(name: str, entry: bool = True) -> dict:
+    """The launches of one call of a path: its own kernels, and with entry
+    the entry's (process_video_batched pads and upscales with the plain
+    functions, so its chunks launch neither)."""
+    want = {**PATHS[name][5], **(ENTRY if entry else {})}
+    return {k: want.get(k, 0) for k in KERNELS}
+
+
+def plain_versions() -> dict:
+    """Each kernel's plain PyTorch version, taking the wrapper's arguments
+    (the wrappers run these on the CPU)."""
+    import torch
+
+    from of_dis_tpu_torch.models.dis import _upscale_crop
+    from of_dis_tpu_torch.models.inverse_search import (
+        gn_search_reference,
+        level_search_reference,
+    )
+    from of_dis_tpu_torch.models.refine import refine_inner_reference, sor_coupled_rb, sor_scalar_rb
+    from of_dis_tpu_torch.ops import pyramid as pyr
+
+    def frame_pad(img1, img2, divisor):
+        return tuple(pyr.pad_to_divisible(x.to(torch.float32), divisor) for x in (img1, img2))
+
+    def flow_upscale(flow, cfg, hp, wp, h0, w0):
+        single = flow.ndim == 3
+        out = _upscale_crop(flow[None] if single else flow, cfg, hp, wp, h0, w0)
+        return out[0] if single else out
+
+    return {"level_search": level_search_reference, "gn_search": gn_search_reference,
+            "refine_inner": refine_inner_reference, "sor_scalar": sor_scalar_rb,
+            "sor_coupled": sor_coupled_rb, "frame_pad": frame_pad, "flow_upscale": flow_upscale}
 
 
 def path_inputs(name: str):
@@ -371,6 +409,10 @@ def one_pair_args(kernel: str, a: tuple) -> tuple:
         return (a[0][0], type(a[1])(*(t[0] for t in a[1])), a[2], a[3][0], *a[4:])
     if kernel == "refine_inner":  # wx, wy, mask, derivs, ...
         return (*(t[0] for t in a[:3]), tuple(t[0] for t in a[3]), *a[4:])
+    if kernel == "frame_pad":  # img1, img2, divisor
+        return (a[0][0], a[1][0], *a[2:])
+    if kernel == "flow_upscale":  # flow, cfg, hp, wp, h0, w0
+        return (a[0][0], *a[1:])
     n = 5 if kernel == "sor_scalar" else 9  # the SOR fields, then iterations, omega
     return (*(t[0] for t in a[:n]), *a[n:])
 
@@ -435,18 +477,13 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
 
     from of_dis_tpu_torch import batched_flow
     from of_dis_tpu_torch.ops import kernels
-    from of_dis_tpu_torch.models.inverse_search import (
-        PatchTemplates,
-        gn_search_reference,
-        level_search_reference,
-    )
-    from of_dis_tpu_torch.models.refine import refine_inner_reference, sor_scalar_rb
+    from of_dis_tpu_torch.models.inverse_search import PatchTemplates
 
     bcalls = {}
     for name, nb in BATCHED.items():
         img1, img2, cfg = inputs[name]
         a, bb = rolled_batch(img1, img2, nb)
-        batched_flow(a, bb, cfg, device=dev)  # captures _batched_padded's graph, if new
+        batched_flow(a, bb, cfg, device=dev)  # captures dis_entry_jit's graph, if new
         kernels.reset_launches()
         out = batched_flow(a, bb, cfg, device=dev)
         torch.cuda.synchronize()
@@ -467,8 +504,7 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
     # Every kernel call of the batched paths (one per level), on the path's
     # own B distinct pairs, against its plain version on the same batched
     # tensors on the card: every output bit-equal.
-    plain = {"level_search": level_search_reference, "gn_search": gn_search_reference,
-             "refine_inner": refine_inner_reference, "sor_scalar": sor_scalar_rb}
+    plain = plain_versions()
     for name, nb in BATCHED.items():
         for k, kcalls in bcalls[name].items():
             seen = set()
@@ -538,6 +574,21 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
             return (*f, *a[5:]), [(*(x[i] for x in f), *a[5:]) for i in range(b)]
         return make
 
+    def pad_make(a):
+        """frame_pad's (img1, img2, divisor): the batch's pairs are distinct
+        (rolled) up to its own B, repeated past it."""
+        def make(b):
+            x1, x2 = (tiled(torch, x, b) for x in a[:2])
+            return (x1, x2, *a[2:]), [(x1[i], x2[i], *a[2:]) for i in range(b)]
+        return make
+
+    def upscale_make(a):
+        def make(b):
+            nb = a[0].shape[0]
+            f = (tiled(torch, a[0], b) + shift(b, nb, 0.25)[:, None, None, None]).contiguous()
+            return (f, *a[1:]), [(f[i], *a[1:]) for i in range(b)]
+        return make
+
     def coupled_make(h, w):
         def make(b):
             systems = [sor_system(h, w, h * w + i) for i in range(b)]
@@ -551,6 +602,8 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
         "refine_inner": lambda a, v: kernels.refine_inner(*a, variant=v),
         "sor_scalar": lambda a, v: kernels.sor_scalar(*a, variant=v),
         "sor_coupled": lambda a, v: kernels.sor_coupled(*a, variant=v),
+        "frame_pad": lambda a, v: kernels.frame_pad(*a),
+        "flow_upscale": lambda a, v: kernels.flow_upscale(*a),
     }
     stereo_cfg = inputs["stereo gray"][2]
     stereo_levels = [sl for sl in range(stereo_cfg.sc_f, stereo_cfg.sc_l - 1, -1)
@@ -578,6 +631,12 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
     for h, w in ((14, 32), (28, 64), (56, 128)):
         bcases.append(("sor_coupled", f"op2 shape {h}x{w}", coupled_make(h, w),
                        kernels.sor_variants(h, w, 2), True))
+    # the entry's: op2's frames; the flows of op2 (nop 2, sc_l 3), stereo (nop 1), op4 (sc_l 0)
+    bcases.append(("frame_pad", "op2 gray", pad_make(bcalls["op2 gray"]["frame_pad"][0][0]),
+                   (None,), True))
+    for name in ("op2 gray", "stereo gray", "op4 gray"):
+        bcases.append(("flow_upscale", name, upscale_make(bcalls[name]["flow_upscale"][0][0]),
+                       (None,), name == "op2 gray"))
 
     b32 = {k: 0.0 for k in KERNELS}  # ms per pair at B = 32, the rows' own calls
     variant_times = {}
@@ -612,11 +671,12 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
         rows[k]["ms_per_pair_b32"] = b32[k]
 
     # Throughput: op2 gray at B = 1, 8, 32 distinct pairs, pre-padded on the
-    # card (as bench.py feeds the JAX package's _batched_padded): QUEUED
+    # card, through models/dis.py::dis_padded_jit (as bench.py feeds the JAX
+    # package's _batched_padded): QUEUED
     # batches queued, then the last one's copy to the host; THROUGHPUT_REPS
     # repetitions.  Then one profiled batch: device busy per pair and idle.
     from of_dis_tpu_torch.ops import pyramid as pyr
-    from of_dis_tpu_torch.parallel.batch import _batched_padded
+    from of_dis_tpu_torch.models.dis import dis_padded_jit
 
     from of_dis_tpu_torch.ops import graphs
 
@@ -627,19 +687,19 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
         a, bb = (pyr.pad_to_divisible(torch.as_tensor(x, device=dev), scf)
                  for x in rolled_batch(img1, img2, b))
         with graphs.eager() if mode == "eager" else contextlib.nullcontext():
-            _batched_padded(a, bb, cfg).cpu()
+            dis_padded_jit(a, bb, cfg).cpu()
             rates = []
             for _ in range(THROUGHPUT_REPS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(QUEUED):
-                    last = _batched_padded(a, bb, cfg)
+                    last = dis_padded_jit(a, bb, cfg)
                 last.cpu()
                 rates.append(QUEUED * b / (time.perf_counter() - t0))
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                _batched_padded(a, bb, cfg).cpu()
+                dis_padded_jit(a, bb, cfg).cpu()
                 wall_ms = (time.perf_counter() - t0) * 1e3
         summary = profile_summary(prof, wall_ms / b, b, DeviceType)
         throughput[mode][str(b)] = float(np.median(rates))
@@ -658,7 +718,7 @@ def batched_phase(torch, dev, inputs, rows, smi, golden, sor_system) -> dict:
 
 
 # ---- the graphs phase: compiled executables against eager runs ----
-GRAPH_B = (1, 8, 32)     # batched_flow's _batched_padded graphs, op2 gray
+GRAPH_B = (1, 8, 32)     # batched_flow's dis_entry_jit graphs, op2 gray
 VIDEO_FRAMES = 16        # process_video_batched: op2 gray's first frame moved 4 px a frame
 VIDEO_B = 4
 VIDEO_QUEUE = 2
@@ -696,11 +756,6 @@ def graphs_phase(torch, dev, inputs, calls, golden, sor_system, smi) -> dict:
     import shutil
 
     from of_dis_tpu_torch import batched_flow, eager
-    from of_dis_tpu_torch.models.inverse_search import (
-        gn_search_reference,
-        level_search_reference,
-    )
-    from of_dis_tpu_torch.models.refine import refine_inner_reference, sor_coupled_rb, sor_scalar_rb
     from of_dis_tpu_torch.ops import graphs, kernels
     from of_dis_tpu_torch.parallel.video import process_video, process_video_batched
     from of_dis_tpu_torch.utils.instrument import dis_flow_timed
@@ -773,7 +828,7 @@ def graphs_phase(torch, dev, inputs, calls, golden, sor_system, smi) -> dict:
         if "epe_vs_golden" in line:
             require(line["epe_vs_golden"] < EPE_GOLDEN, f"{name} graph: {line}")
 
-    # batched_flow through _batched_padded's graph at each b of GRAPH_B
+    # batched_flow through dis_entry_jit's graph at each b of GRAPH_B
     img1, img2, cfg = inputs["op2 gray"]
     for b in GRAPH_B:
         a, bb = rolled_batch(img1, img2, b)
@@ -867,9 +922,7 @@ def graphs_phase(torch, dev, inputs, calls, golden, sor_system, smi) -> dict:
     def alone(*a, **kw):
         return kernel_cache.call(_alone, a, kw)
 
-    plain = {"level_search": level_search_reference, "gn_search": gn_search_reference,
-             "refine_inner": refine_inner_reference, "sor_scalar": sor_scalar_rb,
-             "sor_coupled": sor_coupled_rb}
+    plain = plain_versions()
     cases = [("level_search", a, k) for a, k in calls["op2 gray"]["level_search"]]
     cases += [("level_search", a, k) for a, k in calls["stereo gray fb"]["level_search"]
               if k.get("camlr") == 1][:1]
@@ -884,6 +937,9 @@ def graphs_phase(torch, dev, inputs, calls, golden, sor_system, smi) -> dict:
     for h, w in ((14, 32), (28, 64), (56, 128)):
         a = sor_system(h, w, h * w) + (3, 1.6)
         cases += [("sor_coupled", a, dict(variant=v)) for v in kernels.sor_variants(h, w, 2)]
+    cases += [("frame_pad", a, k) for a, k in calls["op2 gray"]["frame_pad"]]
+    cases += [("flow_upscale", a, k) for name in ("op2 gray", "stereo gray", "op4 gray")
+              for a, k in calls[name]["flow_upscale"]]
     checked = {k: [] for k in KERNELS}
     for k, a, kw in cases:
         alone(k, *a, **kw)  # captures
@@ -1074,7 +1130,8 @@ def video_files_phase(torch, dev, inputs, smi) -> dict:
     for r in range(1, FILE_RUNS):
         shutil.rmtree(root / f"run{r}")
     out, _, launches, counts, _ = timed[0]
-    want_launches = {k: FILE_CHUNKS * n for k, n in expected_launches("op2 gray").items()}
+    want_launches = {k: FILE_CHUNKS * n
+                     for k, n in expected_launches("op2 gray", entry=False).items()}
     rates = [n_pairs / t[1] for t in timed]
     host = {k: float(np.median([t[4][k] for t in timed])) / FILE_CHUNKS
             for k in video.host_seconds}
@@ -1181,7 +1238,8 @@ SPATIAL = {
     "op2 gray fb tiles": ("op2 gray fb", "tiles", 1,
                           dict(level_search=4, gn_search=2, refine_inner=4)),
     "op2 gray flow_2d": ("op2 gray", "flow_2d", 4, dict(level_search=6)),
-    "op2 gray batched mesh": ("op2 gray", "batched", 8, dict(level_search=3, refine_inner=3)),
+    "op2 gray batched mesh": ("op2 gray", "batched", 8, dict(level_search=3, refine_inner=3,
+                                                             **ENTRY)),
 }
 SPATIAL_RANKS = 4
 SPATIAL_TIMEOUT_S = 600
@@ -1201,14 +1259,7 @@ def _calls_vs_plain(torch, kernels, calls) -> dict:
     """Every recorded kernel call (record_calls) run again and against its
     plain version on the same arguments: the calls checked, those that
     differ, the largest difference."""
-    from of_dis_tpu_torch.models.inverse_search import (
-        gn_search_reference,
-        level_search_reference,
-    )
-    from of_dis_tpu_torch.models.refine import refine_inner_reference, sor_scalar_rb
-
-    plain = {"level_search": level_search_reference, "gn_search": gn_search_reference,
-             "refine_inner": refine_inner_reference, "sor_scalar": sor_scalar_rb}
+    plain = plain_versions()
     checked, err, differ = 0, 0.0, []
     for k, kcalls in calls.items():
         for i, (args, kw) in enumerate(kcalls):
@@ -2147,6 +2198,82 @@ def main() -> int:
     rows["sor_coupled"] = sc
     sor_phase_costs(2, fit_cases)
 
+    # ---- kernels frame_pad and flow_upscale: the entry's full-resolution passes ----
+    # frame_pad on op2 gray's pair as uint8 (a camera's frames) at B = 1 and
+    # 32; flow_upscale on the flows op2 (nop 2, sc_l 3), stereo gray (nop 1)
+    # and op4 (sc_l 0) hand it, at B = 1 and 32 (pair i the flow plus
+    # 0.25 i).  Each bit-equal to its plain version; ms, plain_ms, bound_ms
+    # from the bytes each moves once, and library_ms: PyTorch's own ops for
+    # the same result (F.pad replicate after the conversion; F.interpolate
+    # bilinear, the scale and a sliced copy).  The rows' ms is op2 gray's
+    # pair (B = 1); case_ms gives every case.
+    import torch.nn.functional as F
+
+    from of_dis_tpu_torch.ops import pyramid as pyr
+
+    plain = plain_versions()
+
+    def entry_case(k, case, args, library, nbytes, nops):
+        got, want = outputs(getattr(kernels, k)(*args)), outputs(plain[k](*args))
+        torch.cuda.synchronize()
+        err = max(float((g.double() - r.double()).abs().max()) for g, r in zip(got, want))
+        b, by = bound_ms(nbytes, nops)
+        line = dict(case=case, out_shape=list(got[0].shape), max_abs_err=err,
+                    ok=all(torch.equal(g, r) for g, r in zip(got, want, strict=True)),
+                    ms=gpu_ms(torch, lambda: getattr(kernels, k)(*args), 50),
+                    plain_ms=gpu_ms(torch, lambda: plain[k](*args), 20),
+                    library_ms=gpu_ms(torch, library, 20), bound_ms=b, bound_by=by)
+        emit(f"kernel {k}", **line)
+        require(line["ok"] and err == 0.0, f"{k} differs from its plain version: {line}")
+        return line
+
+    img1, img2, cfg = inputs["op2 gray"]
+    top, bottom, left, right = pyr.divisibility_padding(h0, w0, 1 << cfg.sc_f)
+    hp, wp = h0 + top + bottom, w0 + left + right
+    fp = {}
+    for b in (1, 32):
+        f1, f2 = (torch.as_tensor(x.astype(np.uint8), device=dev)
+                  for x in rolled_batch(img1, img2, b))
+        c = f1.shape[-1]
+        fp[b] = entry_case(
+            "frame_pad", f"op2 gray uint8 B = {b}", (f1, f2, 1 << cfg.sc_f),
+            lambda f1=f1, f2=f2: [F.pad(x.permute(0, 3, 1, 2).float(), (left, right, top, bottom),
+                                        mode="replicate") for x in (f1, f2)],
+            2 * b * c * (h0 * w0 + 4 * hp * wp), 0.0)
+    rows["frame_pad"] = dict(
+        source="frame_io.cu", replaces="of_dis_tpu/models/dis.py:210-211 (XLA ops)",
+        per="op2 gray", max_abs_err=max(x["max_abs_err"] for x in fp.values()),
+        ms=fp[1]["ms"], plain_ms=fp[1]["plain_ms"], library_ms=fp[1]["library_ms"],
+        bound_ms=fp[1]["bound_ms"], bound_by=fp[1]["bound_by"],
+        case_ms={x["case"]: x["ms"] for x in fp.values()})
+
+    up = {}
+    for name in ("op2 gray", "stereo gray", "op4 gray"):
+        (flow, cfg_u, hp_u, wp_u, h_u, w_u), _ = calls[name]["flow_upscale"][0]
+        t_u, _, l_u, _ = pyr.divisibility_padding(h_u, w_u, 1 << cfg_u.sc_f)
+        sc, nop = cfg_u.sc_l, cfg_u.nop
+        for b in (1, 32):
+            fb = torch.stack([flow + 0.25 * i for i in range(b)])
+
+            def library(fb=fb, sc=sc, hp_u=hp_u, wp_u=wp_u, t_u=t_u, l_u=l_u, h_u=h_u, w_u=w_u):
+                x = fb.permute(0, 3, 1, 2)
+                if sc:
+                    x = F.interpolate(x * float(1 << sc), size=(hp_u, wp_u), mode="bilinear",
+                                      align_corners=False)
+                return x[:, :, t_u:t_u + h_u, l_u:l_u + w_u].contiguous()
+
+            up[f"{name} B = {b}"] = entry_case(
+                "flow_upscale", f"{name} B = {b}", (fb, cfg_u, hp_u, wp_u, h_u, w_u), library,
+                4 * b * nop * (flow.shape[0] * flow.shape[1] + h_u * w_u),
+                10.0 * b * nop * h_u * w_u if sc else 0.0)
+    op2 = up["op2 gray B = 1"]
+    rows["flow_upscale"] = dict(
+        source="frame_io.cu", replaces="of_dis_tpu/models/dis.py:222 and its crop (XLA ops)",
+        per="op2 gray", max_abs_err=max(x["max_abs_err"] for x in up.values()),
+        ms=op2["ms"], plain_ms=op2["plain_ms"], library_ms=op2["library_ms"],
+        bound_ms=op2["bound_ms"], bound_by=op2["bound_by"],
+        case_ms={x["case"]: x["ms"] for x in up.values()})
+
     # ---- main path: each path through the kernels, counted ----
     def golden(case):
         return np.load(FULLRES / f"{case}.npz")["ref"].astype(np.float32)
@@ -2362,9 +2489,9 @@ def main() -> int:
              launches=counts[rows[k]["per"]][k] if rows[k]["per"] else 0,
              max_abs_err=rows[k]["max_abs_err"], ms=rows[k]["ms"],
              plain_ms=rows[k]["plain_ms"], bound_ms=rows[k]["bound_ms"],
-             bound_by=rows[k]["bound_by"], library_ms=None,
-             **{key: rows[k][key] for key in ("level_ms", "variant_ms", "ms_per_pair_b32")
-                if key in rows[k]})
+             bound_by=rows[k]["bound_by"], library_ms=rows[k].get("library_ms"),
+             **{key: rows[k][key] for key in ("level_ms", "variant_ms", "case_ms",
+                                             "ms_per_pair_b32") if key in rows[k]})
         for k in KERNELS
     ]
     # gn_search's tile form (spatial tiling): op4 gray's level-0 tile call
@@ -2383,7 +2510,10 @@ def main() -> int:
          "sor_coupled is on no path: its times sum one launch at each op2 level shape, "
          "and its variant_ms gives each variant's ms at each of those levels; the gn_search "
          "tile form's row is rank 0's level-0 call of op4 gray tiles and that rank's launches "
-         "there, untiled_ms the untiled kernel on the same patches",
+         "there, untiled_ms the untiled kernel on the same patches; frame_pad's ms is op2 "
+         "gray's pair as uint8 frames, flow_upscale's op2 gray's flow, case_ms each case "
+         "(B = 1 and 32; stereo gray and op4 gray for flow_upscale), library_ms PyTorch's own "
+         "ops for the same result (F.pad replicate; F.interpolate bilinear and a slice)",
          per={k: rows[k]["per"] for k in KERNELS}, launches_per_path=counts,
          launches_are="per replay of the path's CUDA graph, equal to an eager run's",
          pair_ms_median=latency, eager_pair_ms_median=eager_latency,

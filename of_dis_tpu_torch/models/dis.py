@@ -7,10 +7,16 @@ oflow.cpp:32-363, and the driver glue of run_dense.cpp:296-414):
     flow = dis_flow(img1, img2, cfg, device="cpu")
 
 The scale loop is a Python loop, run once per static key: on the card
-`dis_padded_jit` / `dis_padded_init_jit` (the JAX package's names,
-of_dis_tpu/models/dis.py:179-186) capture it in a CUDA graph at their first
-call for a key and replay the graph after (ops/graphs.py); on the CPU and
-under graphs.eager() it runs op by op.  Per scale sl = sc_f .. sc_l
+`dis_entry_jit` / `dis_entry_init_jit` capture a whole call in a CUDA graph
+at their first call for a key and replay the graph after (ops/graphs.py);
+on the CPU and under graphs.eager() it runs op by op.  A call is the
+frames' conversion to float32 and divisibility padding
+(ops/kernels.py::frame_pad), the padded pipeline (`_dis_padded`; alone it
+is `dis_padded_jit` / `dis_padded_init_jit`, the JAX package's
+executables, of_dis_tpu/models/dis.py:179-186), and the final upscale and
+crop (ops/kernels.py::flow_upscale), so the frames enter the graph in
+their own dtype (uint8 from a camera) and no full-resolution op runs
+outside it.  Per scale sl = sc_f .. sc_l
 (oflow.cpp:184-337): templates -> init from coarser flow (2x NN lookup) ->
 level search -> deterministic densification (+ the forward-backward merge)
 -> variational refinement.  With fb-merge (cfg.use_fb_merge) a backward
@@ -22,8 +28,8 @@ decides for the level's shape: csrc/level_search.cu extracts the templates
 itself, csrc/gn_search.cu takes them from `build_templates`.  Refinement
 runs csrc/refine_inner.cu (flow) or csrc/sor_rb.cu's scalar SOR (stereo).
 Final: upscale by 2^sc_l (INTER_LINEAR, flow values scaled) and crop the
-divisibility padding (run_dense.cpp:406-414), outside the executables as
-in the JAX package.
+divisibility padding (run_dense.cpp:406-414), inside the entry's
+executable (the JAX package does both outside its jit).
 
 Every stage runs on a batch of pairs (B, Hp, Wp, C), each kernel launch
 taking all B; `dis_raw` runs one pair as a batch of one, and
@@ -241,13 +247,15 @@ def _upscale_crop(flow, cfg: DISConfig, hp: int, wp: int, h0: int, w0: int):
     return flow[:, t : t + h0, l : l + w0]
 
 
-def _prepare(img1, img2, cfg: DISConfig, device, lead: int):
-    """Validated (..., H, W, C) float32 tensors of a pair (lead 0) or a batch
-    (lead 1) on the resolved device, and that device."""
+def _prepare(img1, img2, cfg: DISConfig, device, lead: int, own_dtype: bool = False):
+    """Validated (..., H, W, C) tensors of a pair (lead 0) or a batch (lead
+    1) on the resolved device, and that device: float32, or in the frames'
+    own dtype with own_dtype (for the entry's executable, whose frame_pad
+    converts them)."""
     cfg.validate()
     dev = resolve_device(device)
-    img1 = to_device(img1, dev)
-    img2 = to_device(img2, dev)
+    img1 = to_device(img1, dev, own_dtype=own_dtype)
+    img2 = to_device(img2, dev, own_dtype=own_dtype)
     if img1.ndim == lead + 2:
         img1 = img1[..., None]
         img2 = img2[..., None]
@@ -261,29 +269,44 @@ def _prepare(img1, img2, cfg: DISConfig, device, lead: int):
     return img1, img2, dev
 
 
-def _dis_batch(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False):
-    """A batch (B, H, W, C) of arbitrary size: divisibility padding,
-    pyramid, coarse-to-fine through dis_padded_jit / dis_padded_init_jit,
-    final upscale + crop (run_dense.cpp:296-414).  Returns (B, H, W, nop)."""
-    scf = 1 << cfg.sc_f
-    p1 = pyr.pad_to_divisible(img1, scf)
-    p2 = pyr.pad_to_divisible(img2, scf)
-    if init_flow is None:
-        flow = dis_padded_jit(p1, p2, cfg, gradmag_input)
-    else:
-        flow = dis_padded_init_jit(p1, p2, init_flow, cfg, gradmag_input)
-    return _upscale_crop(flow, cfg, p1.shape[1], p1.shape[2], img1.shape[1], img1.shape[2])
+def _dis_entry(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False):
+    """A batch (B, H, W, C) of arbitrary size, in the frames' own dtype:
+    conversion to float32 and divisibility padding (kernels.frame_pad),
+    pyramid and coarse-to-fine (_dis_padded), final upscale + crop
+    (kernels.flow_upscale) (run_dense.cpp:296-414).  Returns (B, H, W, nop)."""
+    h0, w0 = img1.shape[1:3]
+    p1, p2 = kernels.frame_pad(img1, img2, 1 << cfg.sc_f)
+    flow = _dis_padded(p1, p2, cfg, init_flow, gradmag_input)
+    return kernels.flow_upscale(flow, cfg, p1.shape[1], p1.shape[2], h0, w0)
+
+
+@graphs.executable
+def dis_entry_jit(img1, img2, cfg: DISConfig, gradmag_input: bool = False):
+    """_dis_entry without a warm start, one executable per (cfg,
+    gradmag_input, shapes and dtype of the frames): dis_raw's and
+    batched_flow's whole call, (B, H, W, C) -> (B, H, W, nop)."""
+    return _dis_entry(img1, img2, cfg, None, gradmag_input)
+
+
+@graphs.executable
+def dis_entry_init_jit(img1, img2, init_flow, cfg: DISConfig, gradmag_input: bool = False):
+    """_dis_entry with init_flow at scale sc_f+1, (B, h, w, nop) or (h, w,
+    nop) shared by the batch: one executable per key, its shape included."""
+    return _dis_entry(img1, img2, cfg, init_flow, gradmag_input)
 
 
 def dis_raw(img1, img2, cfg: DISConfig, init_flow=None, gradmag_input: bool = False,
             device=None) -> torch.Tensor:
     """Full driver on arbitrary-size (H, W[, C]) inputs (numpy arrays or
     tensors): divisibility padding, pyramid, coarse-to-fine, final upscale +
-    crop (run_dense.cpp:296-414), as a batch of one pair.  Returns an (H, W,
-    nop) float32 tensor on `device` (CUDA unless given)."""
-    img1, img2, dev = _prepare(img1, img2, cfg, device, 0)
-    init = None if init_flow is None else to_device(init_flow, dev)
-    return _dis_batch(img1[None], img2[None], cfg, init, gradmag_input)[0]
+    crop (run_dense.cpp:296-414), as a batch of one pair through
+    dis_entry_jit / dis_entry_init_jit.  Returns an (H, W, nop) float32
+    tensor on `device` (CUDA unless given)."""
+    img1, img2, dev = _prepare(img1, img2, cfg, device, 0, own_dtype=True)
+    if init_flow is None:
+        return dis_entry_jit(img1[None], img2[None], cfg, gradmag_input)[0]
+    init = to_device(init_flow, dev)
+    return dis_entry_init_jit(img1[None], img2[None], init, cfg, gradmag_input)[0]
 
 
 def dis_flow(img1, img2, cfg: Optional[DISConfig] = None, **kw) -> torch.Tensor:

@@ -15,7 +15,8 @@ and fields, and launches once for all of them; given one pair's tensors
 The plain versions live beside the step functions they compose
 (models/inverse_search.py::level_search_reference, ::gn_search_reference;
 models/refine.py::refine_inner_reference, ::sor_scalar_rb,
-::sor_coupled_rb).  Those modules call the wrappers here, so this module
+::sor_coupled_rb; ops/pyramid.py::pad_to_divisible; models/dis.py::
+_upscale_crop).  Those modules call the wrappers here, so this module
 imports none of models/ at load time; each wrapper takes what it needs from
 there when it is called.
 
@@ -25,6 +26,8 @@ there when it is called.
   refine_inner   csrc/refine_inner.cu   replaces of_dis_tpu/ops/pallas_kernels.py::_refine_inner_kernel
   sor_scalar     csrc/sor_rb.cu         replaces of_dis_tpu/ops/pallas_kernels.py::_sor_scalar_kernel
   sor_coupled    csrc/sor_rb.cu         replaces of_dis_tpu/ops/pallas_kernels.py::_sor_coupled_kernel
+  frame_pad      csrc/frame_io.cu       the entry's divisibility padding (no TPU kernel: XLA ops)
+  flow_upscale   csrc/frame_io.cu       the entry's final upscale and crop (no TPU kernel: XLA ops)
 
 level_search and gn_search share the GN state machine (csrc/gn_machine.cuh),
 one warp per patch; `search_route` picks one of them per level.
@@ -53,9 +56,11 @@ import torch
 
 from ..config import DISConfig
 from . import build
+from . import pyramid as pyr
 
 launches: Dict[str, int] = {"level_search": 0, "gn_search": 0, "refine_inner": 0,
-                            "sor_scalar": 0, "sor_coupled": 0}
+                            "sor_scalar": 0, "sor_coupled": 0, "frame_pad": 0,
+                            "flow_upscale": 0}
 routes: Dict[str, int] = {"level": 0, "gn": 0}
 
 
@@ -585,3 +590,91 @@ def sor_coupled(du, dv, a11, a12, a22, b1, b2, wh, wv, iterations: int, omega: f
         raise ValueError(f"sor_coupled: unsupported device {du.device}")
     return tuple(_sor_launch("sor_coupled", 2, (du, dv, a11, a12, a22, b1, b2, wh, wv),
                              iterations, omega, variant))
+
+
+# ---------------------------------------------------------------------------
+# The entry's full-resolution passes: frame padding, flow upscale and crop
+# ---------------------------------------------------------------------------
+
+_FRAME_DTYPES = (torch.uint8, torch.float32)  # codes 0, 1 of frame_pad_launch
+
+
+def _frame_io_lib(name: str, argtypes):
+    fn = getattr(build.load("frame_io"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def frame_pad(img1, img2, divisor: int):
+    """Both frames of B pairs, (B, H, W, C) in their own dtype, as float32
+    (B, Hp, Wp, C) each, edge-replicated to divisibility by `divisor`
+    (pyr.divisibility_padding); or one pair's (H, W, C) frames.  On the card
+    one launch writes both (views of one (2, B, Hp, Wp, C) tensor).  uint8
+    and float32 frames go to the kernel as they are; frames of another dtype
+    (or of two dtypes) are converted to float32 first, and any layout is
+    made contiguous (the entry takes what a caller hands it)."""
+    if img1.device.type == "cpu":
+        return tuple(pyr.pad_to_divisible(x.to(torch.float32), divisor) for x in (img1, img2))
+    if img1.device.type != "cuda":
+        raise ValueError(f"frame_pad: unsupported device {img1.device}")
+    single = img1.ndim == 3
+    img1, img2 = _one_pair(single, (img1, img2))
+    same = img1.dtype == img2.dtype and img1.dtype in _FRAME_DTYPES
+    dtype = img1.dtype if same else torch.float32
+    img1, img2 = (x.to(dtype).contiguous() for x in (img1, img2))
+    b, h, w, c = img1.shape
+    if c not in (1, 3):
+        raise ValueError(f"frame_pad: unsupported C={c}")
+    dev = img1.device
+    _check("img2", img2, (b, h, w, c), dev, dtype)
+    t, bottom, left, right = pyr.divisibility_padding(h, w, divisor)
+    hp, wp = h + t + bottom, w + left + right
+    out = torch.empty((2, b, hp, wp, c), dtype=torch.float32, device=dev)
+    fn = _frame_io_lib("frame_pad_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        rc = fn(_ptr(img1), _ptr(img2), _ptr(out), _FRAME_DTYPES.index(dtype),
+                b, h, w, c, hp, wp, t, left, _stream(dev))
+    _raise_on(rc, "frame_pad")
+    launches["frame_pad"] += 1
+    return (out[0, 0], out[1, 0]) if single else (out[0], out[1])
+
+
+def flow_upscale(flow, cfg: DISConfig, hp: int, wp: int, h0: int, w0: int):
+    """The flow (B, Hp >> sc_l, Wp >> sc_l, nop) at scale sc_l of (Hp, Wp)
+    padded pairs as (B, h0, w0, nop): times 2^sc_l, resized to (Hp, Wp)
+    (INTER_LINEAR, half-pixel centres; none at sc_l 0) and the
+    divisibility padding cropped, only the cropped pixels computed; or one
+    pair's, without the leading B.  A flow of any layout is made contiguous
+    (without refinement the densified flow is a strided view).  The plain
+    version is models/dis.py::_upscale_crop, whose float32 operations the
+    kernel repeats in order."""
+    single = flow.ndim == 3
+    (flow,) = _one_pair(single, (flow,))
+    if flow.device.type == "cpu":
+        from ..models.dis import _upscale_crop
+
+        out = _upscale_crop(flow, cfg, hp, wp, h0, w0)
+        return out[0] if single else out
+    if flow.device.type != "cuda":
+        raise ValueError(f"flow_upscale: unsupported device {flow.device}")
+    flow = flow.contiguous()
+    sc, nop = cfg.sc_l, cfg.nop
+    b, hl, wl = flow.shape[:3]
+    if (hl << sc, wl << sc) != (hp, wp):
+        raise ValueError(f"flow_upscale: a {hl}x{wl} flow at scale {sc} is not of {hp}x{wp}")
+    dev = flow.device
+    _check("flow", flow, (b, hl, wl, nop), dev)
+    t, _, left, _ = pyr.divisibility_padding(h0, w0, 1 << cfg.sc_f)
+    if t + h0 > hp or left + w0 > wp:
+        raise ValueError(f"flow_upscale: {h0}x{w0} does not fit {hp}x{wp}")
+    out = torch.empty((b, h0, w0, nop), dtype=torch.float32, device=dev)
+    fn = _frame_io_lib("flow_upscale_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        rc = fn(_ptr(flow), _ptr(out), b, hl, wl, nop, sc, h0, w0, t, left, _stream(dev))
+    _raise_on(rc, "flow_upscale")
+    launches["flow_upscale"] += 1
+    return out[0] if single else out

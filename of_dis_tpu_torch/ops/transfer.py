@@ -88,28 +88,32 @@ def _cpu_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def to_device(x, device) -> torch.Tensor:
+def to_device(x, device, own_dtype: bool = False) -> torch.Tensor:
     """x (a numpy array, anything np.asarray takes, or a tensor) as a float32
     tensor on `device`.  Onto a card the copy is queued through pinned
     memory in x's own dtype and the call returns before it has run; the
     card converts it (the same values: every such conversion rounds to
-    nearest on both)."""
+    nearest on both).  With own_dtype the tensor keeps x's dtype (float32
+    for one torch cannot hold): the entry points' frames, which their
+    executable converts (models/dis.py::_prepare)."""
     device = torch.device(device)
     if isinstance(x, torch.Tensor):
         if device.type != "cuda" or x.device.type != "cpu":
-            return x.to(device=device, dtype=torch.float32)
+            return x.to(device) if own_dtype else x.to(device=device, dtype=torch.float32)
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         host.copy_(x)
-        return _upload(host, device).to(torch.float32)
-    if device.type != "cuda":
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
-    x = np.asarray(x)
-    if x.dtype not in _TORCH_DTYPES:
-        x = np.asarray(x, dtype=np.float32)
-    host = torch.empty(x.shape, dtype=torch.from_numpy(np.empty(0, x.dtype)).dtype,
-                       pin_memory=True)
-    host.numpy()[...] = x
-    return _upload(host, device).to(torch.float32)
+    else:
+        x = np.asarray(x)
+        if x.dtype not in _TORCH_DTYPES:
+            x = np.asarray(x, dtype=np.float32)
+        if device.type != "cuda":
+            x = np.array(x, dtype=None if own_dtype else np.float32)
+            return torch.from_numpy(x).to(device)
+        host = torch.empty(x.shape, dtype=torch.from_numpy(np.empty(0, x.dtype)).dtype,
+                           pin_memory=True)
+        host.numpy()[...] = x
+    t = _upload(host, device)
+    return t if own_dtype else t.to(torch.float32)
 
 
 def stack_to_device(arrays: Iterable, n: int, device) -> torch.Tensor:

@@ -10,17 +10,18 @@ of one pair (3 level_search and 3 refine_inner at op2, whatever B is).
     flow = batched_flow(imgs1, imgs2, cfg)                # (B, H, W, nop), on the card
     flow = batched_flow(imgs1, imgs2, cfg, device="cpu")  # the plain versions
 
-Each pair's output equals its own `dis_raw` bit for bit.  On the card
-`_batched_padded` is an executable (ops/graphs.py), as the JAX package
-jits it (of_dis_tpu/parallel/batch.py:34): a CUDA graph per (cfg, B,
-shape), captured at its first call and replayed after; the padding, the
-final upscale and crop run outside it.
+Each pair's output equals its own `dis_raw` bit for bit.  On the card a
+call runs dis_raw's executable, models/dis.py::dis_entry_jit (ops/graphs.py;
+the JAX package jits `_batched_padded`, of_dis_tpu/parallel/batch.py:34): a
+CUDA graph per (cfg, B, shape, dtype of the frames), captured at its first
+call and replayed after, with the frames' conversion and padding and the
+final upscale and crop inside it.
 
 With a mesh (`data_mesh`, a 1-D torch.distributed DeviceMesh over the
 world's ranks) every rank calls batched_flow with the whole batch, runs its
 contiguous share of it, and the shares are gathered over `data`, so every
 rank returns the whole result, each pair bit-equal to the run without a
-mesh (each rank's share runs `_batched_padded`; the gather stays outside):
+mesh (each rank's share runs `dis_entry_jit`; the gather stays outside):
 
     flow = batched_flow(imgs1, imgs2, cfg, mesh=data_mesh())
 """
@@ -33,8 +34,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import DISConfig
-from ..models.dis import _dis_padded, _prepare, _upscale_crop
-from ..ops import graphs, pyramid as pyr
+from ..models.dis import _prepare, dis_entry_jit
 from .collectives import _all_gather, _axis_size, device_mesh
 
 
@@ -57,13 +57,6 @@ def _data_slice(b: int, mesh, axis: str) -> slice:
     return slice(r * per, (r + 1) * per)
 
 
-@graphs.executable
-def _batched_padded(imgs1: torch.Tensor, imgs2: torch.Tensor, cfg: DISConfig) -> torch.Tensor:
-    """(B, Hp, Wp, C) -> (B, h_l, w_l, nop) at scale sc_l; inputs pre-padded
-    to divisibility by 2^sc_f."""
-    return _dis_padded(imgs1, imgs2, cfg)
-
-
 def batched_flow(imgs1, imgs2, cfg: DISConfig, device=None, mesh=None,
                  axis: str = "data") -> torch.Tensor:
     """Flow (or disparity) for a batch of frame pairs (B, H, W[, C]) ->
@@ -75,12 +68,9 @@ def batched_flow(imgs1, imgs2, cfg: DISConfig, device=None, mesh=None,
     data parallelism: each rank runs its share, then one gather); every
     rank calls with the whole batch and gets the whole result.  B must be
     divisible by the axis size."""
-    img1, img2, _ = _prepare(imgs1, imgs2, cfg, device, 1)
+    img1, img2, _ = _prepare(imgs1, imgs2, cfg, device, 1, own_dtype=True)
     if mesh is not None:
         share = _data_slice(img1.shape[0], mesh, axis)
         img1, img2 = img1[share], img2[share]
-    scf = 1 << cfg.sc_f
-    p1, p2 = pyr.pad_to_divisible(img1, scf), pyr.pad_to_divisible(img2, scf)
-    flow = _upscale_crop(_batched_padded(p1, p2, cfg), cfg, p1.shape[1], p1.shape[2],
-                         img1.shape[1], img1.shape[2])
+    flow = dis_entry_jit(img1, img2, cfg)
     return flow if mesh is None else _all_gather(flow, mesh, axis, 0)

@@ -80,7 +80,7 @@ def test_path_graph_equals_eager(cuda, name):
         want, want_launches = _counted(lambda: dis_raw(img1, img2, cfg, device=cuda))
     assert sum(want_launches.values()) > 0
     first = dis_raw(img1, img2, cfg, device=cuda)
-    (ex,) = [e for e in graphs.cache.entries(cuda) if e.key[0] is tdis.dis_padded_jit.fn
+    (ex,) = [e for e in graphs.cache.entries(cuda) if e.key[0] is tdis.dis_entry_jit.fn
              and e.key[1].kids[0].kids[2] == cfg]
     assert ex.launches == {k: n for k, n in want_launches.items() if n}
     again, launches = _counted(lambda: dis_raw(img1, img2, cfg, device=cuda))
@@ -105,7 +105,7 @@ def test_executable_records_routes(cuda):
         dis_raw(img1, img2, cfg, device=cuda)
     assert kernels.routes == {"level": 2, "gn": 1}
     dis_raw(img1, img2, cfg, device=cuda)  # captures, unless an earlier test did
-    (ex,) = [e for e in graphs.cache.entries(cuda) if e.key[0] is tdis.dis_padded_jit.fn
+    (ex,) = [e for e in graphs.cache.entries(cuda) if e.key[0] is tdis.dis_entry_jit.fn
              and e.key[1].kids[0].kids[2] == cfg]
     assert ex.routes == {"level": 2, "gn": 1}
     _counted(lambda: [dis_raw(img1, img2, cfg, device=cuda) for _ in range(2)])
@@ -114,8 +114,8 @@ def test_executable_records_routes(cuda):
 
 @pytest.mark.parametrize("b", [1, 2, 7])
 def test_batched_graph_equals_eager_and_each_pair(cuda, b):
-    """batched_flow's replay of _batched_padded: bit-equal to its eager run
-    and each pair to its own dis_raw (a replay of dis_padded_jit)."""
+    """batched_flow's replay of dis_entry_jit: bit-equal to its eager run
+    and each pair to its own dis_raw (a replay of dis_entry_jit for one pair)."""
     img1, img2, cfg = _path("op2 gray")
     a = np.stack([np.roll(img1, 4 * i, axis=1) for i in range(b)])
     bb = np.stack([np.roll(img2, 4 * i, axis=1) for i in range(b)])

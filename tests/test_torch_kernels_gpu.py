@@ -269,7 +269,8 @@ def test_dis_flow_on_card_matches_cpu_and_counts_launches(cuda, op):
     torch.cuda.synchronize()
     assert kernels.launches == {
         "level_search": routes.count("level"), "gn_search": routes.count("gn"),
-        "refine_inner": cfg.n_scales, "sor_scalar": 0, "sor_coupled": 0}
+        "refine_inner": cfg.n_scales, "sor_scalar": 0, "sor_coupled": 0,
+        "frame_pad": 1, "flow_upscale": 1}
     cpu = dis_flow(img1, img2, cfg, device="cpu")
     epe = (gpu.cpu() - cpu).pow(2).sum(-1).sqrt().mean()
     assert float(epe) < 0.05
@@ -288,7 +289,7 @@ def test_dis_stereo_on_card_matches_cpu_and_counts_launches(cuda, c):
     torch.cuda.synchronize()
     assert kernels.launches == {
         "level_search": routes.count("level"), "gn_search": routes.count("gn"),
-        "refine_inner": 0, "sor_coupled": 0,
+        "refine_inner": 0, "sor_coupled": 0, "frame_pad": 1, "flow_upscale": 1,
         # one launch per inner iteration: n_inner = tv_innerit * (level + 1)
         "sor_scalar": sum(cfg.tv_innerit * (sl + 1) for sl in range(cfg.sc_l, cfg.sc_f + 1))}
     cpu = dis_stereo(left, right, cfg, device="cpu")
@@ -319,6 +320,7 @@ def test_fbcon_goldens_on_card(cuda, name):
     assert kernels.launches == {
         "level_search": 2 * routes.count("level"), "gn_search": 2 * routes.count("gn"),
         "refine_inner": len(refines) if mode == "flow" else 0, "sor_coupled": 0,
+        "frame_pad": 1, "flow_upscale": 1,
         "sor_scalar": 0 if mode == "flow" else sum(cfg.tv_innerit * (sl + 1) for sl in refines)}
     gpu = gpu.cpu().numpy()
     path = os.path.join(GOLD, case["out"])
